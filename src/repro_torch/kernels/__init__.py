@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
+
+Data plane (the paper's local strategies, ports of `repro.kernels`; the
+CUDA sources are in `repro_torch/csrc/`):
+  sorted_probe   — join probe: a binary search per query (`csrc/sorted_probe.cu`)
+  segmented_scan — grouped aggregation: segmented add/max/min scan and the
+                   segment_reduce entry (`csrc/segmented_scan.cu`)
+
+`ops.py` holds the wrappers and launch counts, `ref.py` the plain torch
+versions, `build.py` the nvcc build.  The model-plane kernels of `repro`
+(flash attention, RWKV-6, linear scan) and the megakernel span are not
+ported yet (ROADMAP.md, Queue 2).
+"""

@@ -1,0 +1,128 @@
+"""Builds the hand-written CUDA kernels and loads them with ctypes.
+
+Each source under `repro_torch/csrc/` has a plain C interface and includes no PyTorch
+header, so `nvcc` compiles it in seconds into its own shared library under
+`build/kernels/` at the repository root (listed in `.gitignore`).  The
+library's name carries a hash of its source and flags, so an edited source
+is never served from a stale build.  `build_all()` starts one `nvcc` per
+source, all at once, and waits for them; `library(name)` builds on first use.
+
+Nothing here runs at import time, and nothing falls back: a missing `nvcc`
+or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = ("-O3", "-std=c++17", ARCH, "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
+
+SOURCES = {"sorted_probe": "sorted_probe.cu",
+           "segmented_scan": "segmented_scan.cu"}
+
+_lock = threading.Lock()
+_libs: dict = {}
+_ptxas: dict = {}
+
+
+def nvcc() -> str:
+    """Path of `nvcc`: `$CUDA_HOME/bin`, else the one on `PATH`."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> pathlib.Path:
+    src = (_CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start(name: str) -> Optional[subprocess.Popen]:
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
+    if proc is None:
+        _ptxas.setdefault(name, "(cached build)")
+        return
+    log, _ = proc.communicate()
+    out = _target(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    _ptxas[name] = log
+
+
+def build_all() -> dict:
+    """Compile every kernel source in parallel; returns {name: ptxas log}."""
+    with _lock:
+        procs = {name: _start(name) for name in SOURCES}
+        for name, proc in procs.items():
+            _finish(name, proc)
+        return {name: _ptxas[name] for name in SOURCES}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            _declare(name, lib)
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if name == "sorted_probe":
+        fn = lib.repro_sorted_probe
+        fn.argtypes = [i, p, ll, p, ll, p, p]
+        fn.restype = i
+    elif name == "segmented_scan":
+        fn = lib.repro_segmented_scan
+        fn.argtypes = [i, i, p, p, ll, i, p, p, p, ll, p, p, p, p]
+        fn.restype = i
+        tiles = lib.repro_segmented_scan_tiles
+        tiles.argtypes = [ll]
+        tiles.restype = ll
+    else:  # pragma: no cover - SOURCES and this table move together
+        raise KeyError(name)
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero `cudaError_t` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

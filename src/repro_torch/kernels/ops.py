@@ -1,0 +1,226 @@
+"""Public wrappers of the data-plane kernels: checks, dispatch, launch counts.
+
+Port of the `segmented_scan`, `segment_reduce`, `KernelSegmentOps` and
+`sorted_probe` entries of `repro.kernels.ops`.  A wrapper given CPU tensors
+runs the kernel's plain torch version (`kernels.ref`); given CUDA tensors it
+launches the hand-written CUDA kernel (`repro_torch/csrc/`, built on first use
+by `kernels.build`) on the current stream, or raises — there is no quiet
+fallback.  Every CUDA launch of a kernel adds one to `LAUNCHES[name]`, so a
+run can show that its main path went through the kernels.
+
+Unlike the reference wrappers, values keep their native dtype: no float32
+cast (`repro/kernels/ops.py:51,78`), so integer sums are exact.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.scans import identity_for, scan_identity
+from ..core.record import as_tensor
+from ..core.udf import SegmentOps, mean_of
+from . import build, ref
+
+# CUDA launches per kernel since the last `reset_launches()`
+LAUNCHES = {"sorted_probe": 0, "segmented_scan": 0}
+
+# the data plane's column types (the reference runs with 64-bit JAX)
+_DTYPES = {torch.int64: 0, torch.float64: 1}
+_OPS = {"add": 0, "max": 1, "min": 2}
+_MAX_COLS = 4  # columns per scan (csrc/segmented_scan.cu kMaxC)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on a mix or on any
+    other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"kernel inputs on unsupported or mixed devices: "
+                     f"{sorted(str(t.device) for t in tensors)}")
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"kernel does not take dtype {t.dtype}")
+    return _DTYPES[t.dtype]
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Segmented scan / segment reduce
+# ---------------------------------------------------------------------------
+def _launch_scan(v: torch.Tensor, flags: torch.Tensor, op: str,
+                 out_scan=None, seg_ids=None, out_reduce=None) -> None:
+    """One call of the scan kernel on [N, C] contiguous values."""
+    n, c = v.shape
+    if c > _MAX_COLS:
+        raise ValueError(f"segmented_scan takes at most {_MAX_COLS} columns, "
+                         f"got {c}")
+    code = _dtype_code(v)
+    lib = build.library("segmented_scan")
+    tiles = lib.repro_segmented_scan_tiles(n)
+    agg = torch.empty((tiles, c), dtype=v.dtype, device=v.device)
+    carry = torch.empty_like(agg)
+    agg_f = torch.empty(tiles, dtype=torch.uint8, device=v.device)
+    err = lib.repro_segmented_scan(
+        code, _OPS[op], v.data_ptr(), flags.data_ptr(), n, c,
+        None if out_scan is None else out_scan.data_ptr(),
+        None if seg_ids is None else seg_ids.data_ptr(),
+        None if out_reduce is None else out_reduce.data_ptr(),
+        0 if out_reduce is None else out_reduce.shape[0],
+        agg.data_ptr(), agg_f.data_ptr(), carry.data_ptr(), _stream(v.device))
+    build.check(err, "segmented_scan")
+    LAUNCHES["segmented_scan"] += 1
+
+
+def segmented_scan(values: torch.Tensor, flags: torch.Tensor,
+                   op: str = "add") -> torch.Tensor:
+    """Inclusive segmented scan; values [N] or [N, C<=4] int64/float64,
+    flags [N] bool."""
+    if op not in _OPS:
+        raise ValueError(op)
+    if not _on_cuda(values, flags):
+        return ref.segmented_scan(values, flags, op)
+    squeeze = values.ndim == 1
+    v = values[:, None] if squeeze else values
+    if flags.shape != (v.shape[0],):
+        raise ValueError(f"flags shape {tuple(flags.shape)} != ({v.shape[0]},)")
+    f = flags.to(torch.bool).contiguous()
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if v.shape[0]:
+        _launch_scan(v.contiguous(), f, op, out_scan=out)
+    return out[:, 0] if squeeze else out
+
+
+def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int, op: str = "add",
+                   valid=None) -> torch.Tensor:
+    """Per-segment reduction over key-sorted rows: one scan launch that
+    writes only each segment's last row, to its segment id.
+
+    Rows must be sorted by `segment_ids` (the masked executor guarantees
+    this).  Invalid rows contribute `identity_for` (0 or the dtype's finite
+    min/max); empty segments hold `scan_identity`."""
+    if op not in _OPS:
+        raise ValueError(op)
+    tensors = (values, segment_ids) + (() if valid is None else (valid,))
+    if not _on_cuda(*tensors):
+        return ref.segment_reduce(values, segment_ids, num_segments, op, valid)
+    squeeze = values.ndim == 1
+    v = values[:, None] if squeeze else values
+    if valid is not None:
+        v = torch.where(valid[:, None], v, identity_for(op, v.dtype))
+    sid = segment_ids.to(torch.int64).contiguous()
+    n = v.shape[0]
+    flags = torch.ones(n, dtype=torch.bool, device=v.device)
+    flags[1:] = sid[1:] != sid[:-1]
+    out = torch.full((num_segments, v.shape[1]),
+                     scan_identity(op, v.dtype), dtype=v.dtype,
+                     device=v.device)
+    if n:
+        _launch_scan(v.contiguous(), flags, op, seg_ids=sid, out_reduce=out)
+    return out[:, 0] if squeeze else out
+
+
+class KernelSegmentOps(SegmentOps):
+    """SegmentOps backed by the segmented-scan kernel (sorted ids); port of
+    `repro.kernels.ops.KernelSegmentOps`, in the values' native dtype."""
+
+    def __init__(self, segment_ids, num_segments: int, record_valid=None,
+                 is_start=None):
+        self.segment_ids = segment_ids.to(torch.int64)
+        self.num_segments = int(num_segments)
+        self.record_valid = record_valid
+        # first valid row of each segment, precomputed by the masked executor
+        # (required for order-elided inputs, where valid rows have gaps and
+        # segment-id transitions no longer locate group starts)
+        self.is_start = is_start
+
+    def _tensor(self, values) -> torch.Tensor:
+        return as_tensor(values, self.segment_ids.device)
+
+    def _reduce(self, values, op):
+        return segment_reduce(values, self.segment_ids, self.num_segments,
+                              op=op, valid=self.record_valid)
+
+    def sum(self, values):
+        v = self._tensor(values)
+        if v.dtype == torch.bool:
+            v = v.to(torch.int64)
+        return self._reduce(v, "add")
+
+    def max(self, values):
+        return self._reduce(self._tensor(values), "max")
+
+    def min(self, values):
+        return self._reduce(self._tensor(values), "min")
+
+    def count(self):
+        return self.sum(torch.ones_like(self.segment_ids))
+
+    def mean(self, values):
+        return mean_of(self.sum(values), self.count())
+
+    def first(self, values):
+        v = self._tensor(values)
+        sid = self.segment_ids
+        if self.is_start is not None:
+            is_start = self.is_start
+        else:
+            is_start = torch.ones_like(sid, dtype=torch.bool)
+            is_start[1:] = sid[1:] != sid[:-1]
+            if self.record_valid is not None:
+                is_start = is_start & self.record_valid
+        # one slot past the domain absorbs every non-start row
+        rows = torch.where(is_start, sid, self.num_segments)
+        out = torch.zeros(self.num_segments + 1, dtype=v.dtype,
+                          device=v.device)
+        return out.scatter_(0, rows, v)[:self.num_segments]
+
+    def any(self, mask):
+        return self.sum(self._tensor(mask).to(torch.int64)) > 0
+
+    def all(self, mask):
+        return self.sum(self._tensor(mask).to(torch.int64)) == self.count()
+
+    def broadcast(self, per_group):
+        return self._tensor(per_group)[self.segment_ids]
+
+
+# ---------------------------------------------------------------------------
+# Sorted probe
+# ---------------------------------------------------------------------------
+def sorted_probe(keys_sorted: torch.Tensor, queries: torch.Tensor
+                 ) -> torch.Tensor:
+    """searchsorted(keys, queries, side='left') as int32 positions: one
+    binary search per query on the card."""
+    if not _on_cuda(keys_sorted, queries):
+        return ref.sorted_probe(keys_sorted, queries)
+    if keys_sorted.ndim != 1 or queries.ndim != 1:
+        raise ValueError("sorted_probe takes 1-D keys and queries")
+    if keys_sorted.dtype != queries.dtype:
+        raise TypeError(f"keys {keys_sorted.dtype} vs queries {queries.dtype}")
+    code = _dtype_code(keys_sorted)
+    keys = keys_sorted.contiguous()
+    q = queries.contiguous()
+    m = q.shape[0]
+    out = torch.empty(m, dtype=torch.int32, device=q.device)
+    if m:
+        lib = build.library("sorted_probe")
+        err = lib.repro_sorted_probe(code, keys.data_ptr(), keys.shape[0],
+                                     q.data_ptr(), m, out.data_ptr(),
+                                     _stream(q.device))
+        build.check(err, "sorted_probe")
+        LAUNCHES["sorted_probe"] += 1
+    return out
