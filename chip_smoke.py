@@ -2,15 +2,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — flow build + SCA -> optimize ->
-compile(use_kernels=True) -> CompiledPlan.run / run_device — for the
-paper's four evaluation flows at serving scale, through the hand-written
-CUDA kernels (`src/repro_torch/csrc/`), and checks every result
-against the port's eager numpy executor.  Phases, one or more lines each:
+Drives the port's two main paths through the hand-written CUDA kernels
+(`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
+optimize -> compile(use_kernels=True) -> CompiledPlan.run / run_device — for
+the paper's four evaluation flows at serving scale, every result checked
+against the port's eager numpy executor; and token serving — Engine ->
+Model.prefill / decode_step — for qwen3-0.6b at full width and depth with
+the flash-attention kernel.  Phases, one or more lines each:
 
   device   the card's name and power limit (nvidia-smi), first line
-  build    both kernels built from the checkout with nvcc, ptxas lines
-  kernels  each kernel against its plain torch version on the card
+  build    the three kernels built from the checkout with nvcc (one nvcc
+           per source, in parallel), ptxas lines
+  kernels  each kernel against its plain torch version on the card; flash
+           attention at the reference test's seven shapes and the served
+           shapes, timed against the plain version and SDPA, with a bound
   flows    q15 (6M lineitem rows), q7 (1M), clickstream (16M), textmining
            (1M), each through run and through bind_device + run_device:
            both equal to the eager executor; every kernel call on the way
@@ -21,6 +26,14 @@ against the port's eager numpy executor.  Phases, one or more lines each:
   profile  torch.profiler over a warm q15 run_device: device busy time,
            idle share against the unprofiled step time, top device ops,
            repo-kernel time
+  serve    qwen3-0.6b (28 layers, d_model 1024, f32 weights, bf16
+           activations, attn_impl="flash") from a seeded generator; 8
+           requests of 1024-2048 prompt tokens and 32 greedy new tokens
+           through Engine(batch_slots=4, max_seq=2080), every flash call
+           held against the plain attention; the prefill's last-token
+           logits against the same weights with plain attention; then a
+           timed run (tokens/s, prefill ms per chunk, decode ms per step)
+           and a profiled decode step (device busy time, idle share)
 
 The line before the last is a JSON object of the kernels' numbers, the last
 `{"ok": true, "device": {...}}`.  Any failed phase, a missing CUDA device or
@@ -46,7 +59,8 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "smoke")
 
 # H100 SXM published peaks (NVIDIA data sheet) for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12  # non-tensor-core rate; int64 compares and adds
+CUDA_CORE_OPS_PER_S = 67e12  # non-tensor-core rate; int64 and f32 work
+BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 
 FLOW_ROWS = {"q15": 6_000_000, "q7": 1_000_000, "clickstream": 16_000_000,
              "textmining": 1_000_000}
@@ -58,8 +72,35 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/sorted_probe.py:63"),
     "segmented_scan": ("src/repro_torch/csrc/segmented_scan.cu",
                        "src/repro/kernels/segmented_scan.py:83"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:112"),
 }
-REPO_KERNELS = ("probe_kernel", "tile_reduce", "tile_carries", "tile_apply")
+DATA_KERNELS = ("sorted_probe", "segmented_scan")  # the data-flow path's
+REPO_KERNELS = ("probe_kernel", "tile_reduce", "tile_carries", "tile_apply",
+                "flash_bf16", "flash_f32")
+
+# token serving: qwen3-0.6b at full width and depth
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_SEED = 0
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 8, 4, 32
+SERVE_PROMPT = (1024, 2048)        # prompt lengths, drawn from the seed
+SERVE_MAX_SEQ = 2080               # longest prompt + new tokens fits
+# flash kernel vs plain attention, per call: tests/test_kernels.py's limits
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# prefill last-token logits, kernel path vs plain attention, same weights:
+# both run 28 bf16 layers and round attention outputs differently (the
+# kernel feeds P to P.V in bf16), so they agree to bf16 drift, not bits
+LOGIT_TOL = 5e-2
+# (B, Hq, Hkv, T, S, D), causal, window, dtype: tests/test_kernels.py:55-63
+ATTN_TEST_SHAPES = [
+    ((1, 4, 2, 128, 128, 64), True, None, torch.float32),
+    ((2, 8, 8, 64, 64, 32), True, None, torch.bfloat16),
+    ((1, 4, 1, 128, 256, 64), True, None, torch.float32),
+    ((1, 2, 2, 96, 96, 64), True, 32, torch.float32),
+    ((1, 2, 2, 64, 64, 128), False, None, torch.float32),
+    ((1, 4, 2, 1, 128, 64), True, None, torch.float32),
+    ((1, 1, 1, 256, 256, 64), True, 128, torch.bfloat16),
+]
 
 
 def say(phase: str, msg: str) -> None:
@@ -158,6 +199,110 @@ def phase_kernels(res: dict, dev) -> None:
                     f"{op}: {how}; ms={ms:.4f} plain_ms={plain:.3f} "
                     f"bound_ms={bound[0]:.4f} ({bound[1]})")
             del v
+    torch.cuda.empty_cache()
+    _flash_kernel_checks(res, dev)
+
+
+def serve_prompts(vocab: int) -> list:
+    """The serve phase's prompts, drawn from SERVE_SEED."""
+    rng = np.random.default_rng(SERVE_SEED)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def _attn_flops(b, hq, t, s, d, causal, window) -> int:
+    """Flops of the live (q, k) pairs only: 2·D for q·k and 2·D for p·v."""
+    qpos = np.arange(t) + (s - t)
+    hi = np.minimum(qpos, s - 1) if causal else np.full(t, s - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+    return 4 * b * hq * d * pairs
+
+
+def _attn_bound(q, k, v, causal, window) -> tuple:
+    b, hq, t, d = q.shape
+    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rate = BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16 \
+        else CUDA_CORE_OPS_PER_S
+    return _bound(bytes_, _attn_flops(b, hq, t, k.shape[2], d, causal,
+                                      window), rate)
+
+
+def _sdpa(q, k, v, causal, window):
+    """The same function in one PyTorch call (the library yardstick; the
+    port never calls it).  Its is_causal aligns the mask top-left, so
+    anything but causal T == S without a window passes the mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    gqa = q.shape[1] != k.shape[1]
+    t, s = q.shape[2], k.shape[2]
+    if causal and window is None and t == s:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=gqa)
+    mask = ref._mask(t, s, causal, window, q.device)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=gqa)
+
+
+def _attn_close(got, want, dtype) -> tuple:
+    """(ok, max |got - want|) under ATTN_TOL as allclose reads it."""
+    tol = ATTN_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return ok, float(diff.max()) if diff.numel() else 0.0
+
+
+def _flash_kernel_checks(res: dict, dev) -> None:
+    """The flash kernel against its plain version and SDPA at the reference
+    test's seven shapes and at the two shapes the serve phase gives it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    cfg = get_config(SERVE_ARCH)
+    lens = [len(p) for p in serve_prompts(cfg.vocab)]
+    served = [((SERVE_SLOTS, cfg.n_heads, cfg.kv_heads, t, t, cfg.head_dim),
+               True, None, torch.bfloat16)
+              for t in (max(lens[i:i + SERVE_SLOTS])
+                        for i in range(0, len(lens), SERVE_SLOTS))]
+    g = torch.Generator().manual_seed(3)
+    rows = []
+    for shape, causal, window, dt in ATTN_TEST_SHAPES + served:
+        b, hq, hkv, t, s, d = shape
+        q = torch.randn((b, hq, t, d), generator=g).to(dev, dt)
+        k = torch.randn((b, hkv, s, d), generator=g).to(dev, dt)
+        v = torch.randn((b, hkv, s, d), generator=g).to(dev, dt)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention(q, k, v, causal=causal, window=window)
+        lib_out = _sdpa(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        ok, err = _attn_close(got, want, dt)
+        lib_ok, lib_err = _attn_close(lib_out, want, dt)
+        name = f"flash_attention {shape} causal={causal} window={window} " \
+            f"{str(dt)[6:]}"
+        if not ok:
+            raise AssertionError(f"{name}: max abs err {err:g} over "
+                                 f"atol=rtol={ATTN_TOL[dt]:g}")
+        if not lib_ok:
+            raise AssertionError(f"{name}: SDPA disagrees with the plain "
+                                 f"version ({lib_err:g}), not a yardstick")
+        big = t * s >= 1 << 20
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                 window=window), 10 if big else 50)
+        plain = cuda_ms(lambda: ref.attention(q, k, v, causal=causal,
+                                              window=window), 3 if big else 20)
+        lib = cuda_ms(lambda: _sdpa(q, k, v, causal, window), 10 if big else 50)
+        bound = _attn_bound(q, k, v, causal, window)
+        rows.append({"shape": list(shape), "causal": causal, "window": window,
+                     "dtype": str(dt)[6:], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+        say("kernels", f"{name}: max abs err {err:.3g} (atol=rtol="
+            f"{ATTN_TOL[dt]:g}); ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (SDPA) bound_ms={bound[0]:.5f} "
+            f"({bound[1]})")
+        del q, k, v, got, want, lib_out
+    res["flash_shapes"] = rows
     torch.cuda.empty_cache()
 
 
@@ -264,8 +409,8 @@ def phase_flows(res: dict, dev) -> dict:
     from repro_torch.core.optimizer import optimize
     from repro_torch.kernels import ops
 
-    plans, total, calls = {}, {k: 0 for k in ops.LAUNCHES}, {}
-    max_err = {k: 0.0 for k in ops.LAUNCHES}
+    plans, total, calls = {}, {k: 0 for k in DATA_KERNELS}, {}
+    max_err = {k: 0.0 for k in DATA_KERNELS}
     for name in ("q15", "q7", "clickstream", "textmining"):
         t = time.perf_counter()
         root, b = _flow(name)
@@ -276,7 +421,7 @@ def phase_flows(res: dict, dev) -> dict:
             out = cp.run(b)
             out_dev = cp.run_device(cp.bind_device(b))
             torch.cuda.synchronize()
-            launches = dict(ops.LAUNCHES)
+            launches = {k: ops.LAUNCHES[k] for k in DATA_KERNELS}
         if chk.failures:
             raise AssertionError(f"{name}: kernel calls disagree with their "
                                  f"plain versions: {chk.failures}")
@@ -378,18 +523,20 @@ def phase_timing(res: dict, plans: dict) -> list:
     return kernels
 
 
-def _bound(bytes_: float, opers: float) -> tuple:
+def _bound(bytes_: float, opers: float,
+           ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple:
     """(least ms the card could take, "bytes" or "operations"): each input
     read once and each output written once at the HBM rate, against the
-    operations at the CUDA-core rate."""
+    operations at the peak rate for their type (the CUDA-core rate unless
+    given)."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = opers / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = opers / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _entry(name, launches, err, ms, plain_ms, bytes_, opers, library_ms,
-           shape) -> dict:
-    bound_ms, bound_by = _bound(bytes_, opers)
+           shape, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> dict:
+    bound_ms, bound_by = _bound(bytes_, opers, ops_per_s)
     source, replaces = KERNEL_SOURCES[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches[name]),
@@ -398,18 +545,9 @@ def _entry(name, launches, err, ms, plain_ms, bytes_, opers, library_ms,
             "library_ms": library_ms, "shape": shape}
 
 
-def phase_profile(res: dict, plans: dict) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
-    cp, b = plans["q15"]
-    masked = cp.bind_device(b)
-    cp.run_device(masked)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        cp.run_device(masked)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+def _device_busy(prof) -> tuple:
+    """(union of device kernel intervals in us, device kernels, {kernel
+    name: summed us}) of a finished torch.profiler run."""
     spans, per_name = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -428,6 +566,22 @@ def phase_profile(res: dict, plans: dict) -> None:
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
+    return busy, len(spans), per_name
+
+
+def phase_profile(res: dict, plans: dict) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    cp, b = plans["q15"]
+    masked = cp.bind_device(b)
+    cp.run_device(masked)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        cp.run_device(masked)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy, n_kernels, per_name = _device_busy(prof)
     if busy <= 0:
         say("profile", "the profiler recorded no device kernels: device "
             "busy time and idle share not measured")
@@ -441,13 +595,13 @@ def phase_profile(res: dict, plans: dict) -> None:
         "idle_share_profiled": 1 - busy / wall_us,
         "unprofiled_median_us": plain_us,
         "idle_share": max(0.0, 1 - busy / plain_us),
-        "host_us_per_device_kernel": plain_us / len(spans),
-        "repo_kernel_us": repo, "device_kernels": len(spans), "top": top}
+        "host_us_per_device_kernel": plain_us / n_kernels,
+        "repo_kernel_us": repo, "device_kernels": n_kernels, "top": top}
     say("profile", f"q15 run_device: device busy {busy:.0f} us in "
-        f"{len(spans)} device kernels, repo kernels {repo:.0f} us; against "
+        f"{n_kernels} device kernels, repo kernels {repo:.0f} us; against "
         f"the unprofiled median run_device {plain_us:.0f} us idle share "
         f"{res['q15_profile']['idle_share']:.3f}, "
-        f"{plain_us / len(spans):.1f} us of wall per device kernel; the "
+        f"{plain_us / n_kernels:.1f} us of wall per device kernel; the "
         f"profiled run's own wall {wall_us:.0f} us (idle share "
         f"{1 - busy / wall_us:.3f}) includes the profiler's overhead")
     for k, t in top:
@@ -455,6 +609,243 @@ def phase_profile(res: dict, plans: dict) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "q15_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(row_limit=40))
+
+
+class AttnChecker:
+    """Wraps `ops.flash_attention` while the model serves: each call on the
+    main path is held at once against the plain attention on the same
+    inputs (ATTN_TOL).  The plain version touches no launch count.  Keeps
+    the first call's inputs for timing."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self.calls, self.failures, self.first = [], [], None
+        self.max_err = 0.0
+        self._real = real = ops.flash_attention
+
+        def call(q, k, v, causal=True, window=None, scale=None):
+            got = real(q, k, v, causal=causal, window=window, scale=scale)
+            want = ref.attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+            ok, err = _attn_close(got, want, q.dtype)
+            if self.first is None:
+                self.first = (q, k, v, causal, window)
+            self.calls.append((tuple(q.shape), tuple(k.shape), err))
+            self.max_err = max(self.max_err, err)
+            if not ok:
+                self.failures.append((tuple(q.shape), err))
+            return got
+
+        ops.flash_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.flash_attention = self._real
+        return False
+
+
+class StepTimer:
+    """Host-clock time of each `prefill` and `decode_step` of a model, each
+    call bracketed by `torch.cuda.synchronize()` (the engine waits for every
+    step's tokens anyway)."""
+
+    NAMES = ("prefill", "decode_step")
+
+    def __init__(self, model):
+        self.model = model
+        self.ms = {n: [] for n in self.NAMES}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            real, out = getattr(self.model, name), self.ms[name]
+
+            def timed(*a, _real=real, _out=out, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = _real(*a, **k)
+                torch.cuda.synchronize()
+                _out.append((time.perf_counter() - t) * 1e3)
+                return r
+            setattr(self.model, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            delattr(self.model, name)
+        return False
+
+
+def _chunk_tokens(prompts) -> torch.Tensor:
+    """The engine's first chunk, left-padded with token 0 as it pads."""
+    chunk = prompts[:SERVE_SLOTS]
+    tmax = max(len(p) for p in chunk)
+    toks = np.zeros((len(chunk), tmax), np.int64)
+    for i, p in enumerate(chunk):
+        toks[i, tmax - len(p):] = p
+    return torch.from_numpy(toks)
+
+
+def phase_serve(res: dict, dev) -> dict:
+    """Token serving, the model plane's main path: qwen3-0.6b at full width
+    and depth through Engine -> prefill / decode_step with the flash
+    kernel.  Launch counts are set to zero just before the checked run and
+    read just after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import make_model
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = get_config(SERVE_ARCH, attn_impl="flash")
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    model = make_model(cfg, dev).init(gen)
+    torch.cuda.synchronize()
+    say("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.kv_heads} x {cfg.head_dim}, vocab "
+        f"{cfg.vocab} (padded {cfg.padded_vocab}), {model.param_count():,} "
+        f"{str(cfg.p_dtype)[6:]} parameters, {str(cfg.act_dtype)[6:]} "
+        f"activations, attn_impl={cfg.attn_impl}; init on the card "
+        f"{time.perf_counter() - t:.1f}s")
+    prompts = serve_prompts(cfg.vocab)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=SERVE_NEW) for p in prompts]
+
+    engine = Engine(model, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                    seed=SERVE_SEED)
+    # the main path, every kernel call checked
+    with AttnChecker() as chk:
+        ops.reset_launches()
+        reqs = engine.generate(requests())
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+    n_chunks = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    if chk.failures:
+        raise AssertionError(f"flash calls disagree with the plain "
+                             f"attention: {chk.failures}")
+    if launches["flash_attention"] != n_chunks * cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, expected "
+                             f"{n_chunks * cfg.n_layers} (one per prefill "
+                             f"layer): {launches}")
+    for r in reqs:
+        if len(r.out_tokens) != SERVE_NEW or not r.done or not all(
+                0 <= x < cfg.padded_vocab for x in r.out_tokens):
+            raise AssertionError(f"request of {len(r.prompt)} tokens: bad "
+                                 f"output {r.out_tokens}")
+    shapes = sorted({c[0] for c in chk.calls})
+    say("serve", f"checked run: {SERVE_REQUESTS} requests, prompts "
+        f"{[len(p) for p in prompts]}, {SERVE_NEW} new tokens each; "
+        f"{len(chk.calls)} flash calls at q shapes {shapes}, each within "
+        f"atol=rtol={ATTN_TOL[torch.bfloat16]:g} of the plain attention "
+        f"(max abs err {chk.max_err:.4g}); launches {launches}")
+
+    # timed run, no checks
+    with StepTimer(model) as tm:
+        t = time.perf_counter()
+        timed = engine.generate(requests())
+        wall = time.perf_counter() - t
+    n_tok = sum(len(r.out_tokens) for r in timed)
+    same = all(a.out_tokens == b.out_tokens for a, b in zip(reqs, timed))
+    dec = tm.ms["decode_step"]
+    serve = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+             "prefill_ms": tm.ms["prefill"],
+             "decode_ms_per_step_median": float(np.median(dec)),
+             "decode_ms_per_step_mean": float(np.mean(dec)),
+             "decode_steps": len(dec), "tokens_equal_checked_run": same,
+             "out_tokens_first": timed[0].out_tokens}
+    say("serve", f"timed run: {n_tok} tokens in {wall:.3f}s = "
+        f"{serve['tokens_per_s']:.1f} tokens/s; prefill ms per chunk "
+        f"{[round(x, 2) for x in serve['prefill_ms']]}; decode "
+        f"{serve['decode_ms_per_step_median']:.3f} ms per step median "
+        f"({SERVE_SLOTS} tokens a step, {len(dec)} steps); greedy tokens "
+        f"equal to the checked run's: {same}")
+
+    # prefill logits: kernel path against plain attention on the same weights
+    plain = make_model(cfg.with_(attn_impl="xla"), dev).load_params(
+        model.state_dict())
+    toks = _chunk_tokens(prompts).to(dev)
+    state = model.init_decode_state(toks.shape[0], SERVE_MAX_SEQ)
+    lf, state = model.prefill({"tokens": toks}, state)
+    lp, _ = plain.prefill({"tokens": toks},
+                          plain.init_decode_state(toks.shape[0], SERVE_MAX_SEQ))
+    torch.cuda.synchronize()
+    del plain
+    diff = (lf - lp).abs()
+    logit_err = float(diff.max())
+    ok = bool((diff <= LOGIT_TOL + LOGIT_TOL * lp.abs()).all())
+    agree = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
+    if not (ok and torch.isfinite(lf).all()):
+        raise AssertionError(f"prefill logits: flash vs plain max abs err "
+                             f"{logit_err:g} over atol=rtol={LOGIT_TOL:g}")
+    serve.update(logit_max_abs_err=logit_err, logit_max_abs=float(lp.abs().max()),
+                 argmax_agree=agree)
+    say("serve", f"prefill last-token logits [{toks.shape[0]}, 1, "
+        f"{lf.shape[-1]}] on the kernel path vs plain attention: max abs err "
+        f"{logit_err:.4g} (|logit| up to {serve['logit_max_abs']:.3g}; "
+        f"atol=rtol={LOGIT_TOL:g}); argmax agrees on {agree:.2f} of rows")
+
+    # one decode step profiled after two unprofiled ones
+    tok = lf.argmax(-1)
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, state = model.decode_step(tok, state)
+        tok = out.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out, state = model.decode_step(tok, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy, n_kernels, per_name = _device_busy(prof)
+    step_us = float(np.median(dec)) * 1e3
+    if busy > 0:
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        serve["decode_profile"] = {
+            "device_busy_us": busy, "device_kernels": n_kernels,
+            "idle_share": max(0.0, 1 - busy / step_us),
+            "profiled_wall_us": wall_us, "top": top}
+        say("serve", f"decode step: device busy {busy:.0f} us in {n_kernels} "
+            f"device kernels; against the timed run's median step "
+            f"{step_us:.0f} us idle share "
+            f"{serve['decode_profile']['idle_share']:.3f} ("
+            f"{step_us / n_kernels:.1f} us of wall per device kernel; "
+            f"profiled wall {wall_us:.0f} us)")
+        for k, v in top:
+            say("serve", f"  {v:10.1f} us  {k[:90]}")
+    else:
+        say("serve", "the profiler recorded no device kernels: decode busy "
+            "time and idle share not measured")
+    res["serve"] = serve
+
+    # the kernel's numbers at the main path's first call
+    q, k, v, causal, window = chk.first
+    b, hq, tq, d = q.shape
+    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    opers = _attn_flops(b, hq, tq, k.shape[2], d, causal, window)
+    entry = _entry(
+        "flash_attention", launches, chk.max_err,
+        cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                            window=window), 20),
+        cuda_ms(lambda: ref.attention(q, k, v, causal=causal, window=window),
+                3),
+        bytes_, opers, cuda_ms(lambda: _sdpa(q, k, v, causal, window), 20),
+        f"q {list(q.shape)}, k/v {list(k.shape)}, causal, "
+        f"{str(q.dtype)[6:]}", BF16_TENSOR_OPS_PER_S)
+    say("serve", f"flash_attention at the first prefill's shape "
+        f"({entry.pop('shape')}): ms={entry['ms']:.4f} "
+        f"plain_ms={entry['plain_ms']:.4f} library_ms={entry['library_ms']:.4f} "
+        f"(SDPA) bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); "
+        f"max_abs_err over the path's calls {entry['max_abs_err']:g}")
+    return entry
 
 
 def main() -> int:
@@ -484,6 +875,10 @@ def main() -> int:
         kernels = phase_timing(res, plans)
         phase = "profile"
         phase_profile(res, plans)
+        del plans
+        torch.cuda.empty_cache()
+        phase = "serve"
+        kernels.append(phase_serve(res, dev))
     except Exception:
         say(phase, "FAILED\n" + traceback.format_exc())
         return 1

@@ -1,12 +1,16 @@
 """Carrying data between the reference package and the port.
 
-This system has no weights: its state is the bound data.  Both packages
-bind sources as `{source: RecordBatch}` and a `RecordBatch` holds numpy
-columns, so numpy dictionaries are the common currency.  `bindings` turns
+The data plane's state is the bound data.  Both packages bind sources as
+`{source: RecordBatch}` and a `RecordBatch` holds numpy columns, so numpy
+dictionaries are the common currency.  `bindings` turns
 `{source: {field: np.ndarray}}` (what the reference's
 `RecordBatch.columns` hold) into the port's bindings; `columns` turns a
 port result — a `RecordBatch` or a device-resident `MaskedBatch` — back
 into `{field: np.ndarray}` of its valid rows.
+
+The model plane's state is its weights: `model_params` turns the
+reference's parameter pytree, as nested dicts of numpy arrays, into a
+state dict for the port's `Model`.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from .core.masked import MaskedBatch
 from .core.record import RecordBatch, as_numpy
@@ -34,3 +39,31 @@ def columns(result) -> dict[str, np.ndarray]:
         result = result.to_record_batch()
     b = result.to_numpy().compact()
     return {f: as_numpy(v) for f, v in b.columns.items()}
+
+
+def model_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """The reference's parameter pytree (nested dicts of numpy arrays, each
+    leaf under "layers" stacked on a leading axis of `cfg.n_layers`) ->
+    `{dotted path: tensor}` for `Model.load_params`: "layers" is unstacked
+    into `layers.{i}.…`, every other leaf keeps its path."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1 "
+            f"item 9)")
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, tree: Mapping, layer=None):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(f"{prefix}{k}.", v, layer)
+            else:
+                out[prefix + k] = torch.from_numpy(np.array(
+                    v if layer is None else v[layer], copy=True))
+
+    for k, v in params.items():
+        if k == "layers":
+            for i in range(cfg.n_layers):
+                walk(f"layers.{i}.", v, i)
+        else:
+            walk(f"{k}.", v)
+    return out

@@ -6,8 +6,12 @@ CUDA sources are in `repro_torch/csrc/`):
   segmented_scan — grouped aggregation: segmented add/max/min scan and the
                    segment_reduce entry (`csrc/segmented_scan.cu`)
 
+Model plane:
+  flash_attention — causal / sliding-window GQA attention with an online
+                   softmax, every prefill layer under attn_impl="flash"
+                   (`csrc/flash_attention.cu`)
+
 `ops.py` holds the wrappers and launch counts, `ref.py` the plain torch
-versions, `build.py` the nvcc build.  The model-plane kernels of `repro`
-(flash attention, RWKV-6, linear scan) and the megakernel span are not
-ported yet (ROADMAP.md, Queue 2).
+versions, `build.py` the nvcc build.  The RWKV-6 and linear-scan kernels of
+`repro` and the megakernel span are not ported yet (ROADMAP.md, Queue 2).
 """

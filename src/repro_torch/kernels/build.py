@@ -29,7 +29,8 @@ FLAGS = ("-O3", "-std=c++17", ARCH, "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
 SOURCES = {"sorted_probe": "sorted_probe.cu",
-           "segmented_scan": "segmented_scan.cu"}
+           "segmented_scan": "segmented_scan.cu",
+           "flash_attention": "flash_attention.cu"}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -118,6 +119,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         tiles = lib.repro_segmented_scan_tiles
         tiles.argtypes = [ll]
         tiles.restype = ll
+    elif name == "flash_attention":
+        fn = lib.repro_flash_attention
+        fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, ctypes.c_float, i,
+                       i, p]
+        fn.restype = i
     else:  # pragma: no cover - SOURCES and this table move together
         raise KeyError(name)
 

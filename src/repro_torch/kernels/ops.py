@@ -1,15 +1,17 @@
-"""Public wrappers of the data-plane kernels: checks, dispatch, launch counts.
+"""Public wrappers of the hand-written kernels: checks, dispatch, launch
+counts.
 
-Port of the `segmented_scan`, `segment_reduce`, `KernelSegmentOps` and
-`sorted_probe` entries of `repro.kernels.ops`.  A wrapper given CPU tensors
+Port of the `segmented_scan`, `segment_reduce`, `KernelSegmentOps`,
+`sorted_probe` and `flash_attention` entries of `repro.kernels.ops`.  A wrapper given CPU tensors
 runs the kernel's plain torch version (`kernels.ref`); given CUDA tensors it
 launches the hand-written CUDA kernel (`repro_torch/csrc/`, built on first use
 by `kernels.build`) on the current stream, or raises — there is no quiet
 fallback.  Every CUDA launch of a kernel adds one to `LAUNCHES[name]`, so a
 run can show that its main path went through the kernels.
 
-Unlike the reference wrappers, values keep their native dtype: no float32
-cast (`repro/kernels/ops.py:51,78`), so integer sums are exact.
+Unlike the reference wrappers, data-plane values keep their native dtype:
+no float32 cast (`repro/kernels/ops.py:51,78`), so integer sums are exact.
+The attention kernel masks ragged tails, so no block size is chosen here.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..core.udf import SegmentOps, mean_of
 from . import build, ref
 
 # CUDA launches per kernel since the last `reset_launches()`
-LAUNCHES = {"sorted_probe": 0, "segmented_scan": 0}
+LAUNCHES = {"sorted_probe": 0, "segmented_scan": 0, "flash_attention": 0}
 
 # the data plane's column types (the reference runs with 64-bit JAX)
 _DTYPES = {torch.int64: 0, torch.float64: 1}
@@ -223,4 +225,60 @@ def sorted_probe(keys_sorted: torch.Tensor, queries: torch.Tensor
                                      _stream(q.device))
         build.check(err, "sorted_probe")
         LAUNCHES["sorted_probe"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+_ATTN_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window=None, scale=None
+                    ) -> torch.Tensor:
+    """Causal / sliding-window GQA attention, q [B,Hq,T,D] and k/v
+    [B,Hkv,S,D] -> [B,Hq,T,D] in q's dtype: one launch of the CUDA kernel
+    (`csrc/flash_attention.cu`).  On the card it takes contiguous bf16 or
+    float32 tensors with D in (32, 64, 128) and a window of at least 1."""
+    if not _on_cuda(q, k, v):
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q [B,Hq,T,D] and k, v "
+                         f"[B,Hkv,S,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"make a GQA pair")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head dims {_HEAD_DIMS}, "
+                         f"got {d}")
+    if q.dtype not in _ATTN_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes bf16 or float32 q, k, v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention needs {name} contiguous and "
+                             f"16-byte aligned")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention takes a window >= 1, got {window}")
+    if max(b, hq, t, s) >= 2**31:
+        raise ValueError("flash_attention sizes must fit in int32")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    # a window of S or more masks nothing the kernel could see
+    win = -1 if window is None or window >= s else int(window)
+    lib = build.library("flash_attention")
+    err = lib.repro_flash_attention(
+        _ATTN_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, hq, hkv, t, s,
+        float(scale) if scale is not None else d ** -0.5, int(bool(causal)),
+        win, _stream(q.device))
+    build.check(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
     return out

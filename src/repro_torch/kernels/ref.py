@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the data-plane kernels (port of the matching
+"""Plain PyTorch versions of the hand-written kernels (port of the matching
 functions of `repro.kernels.ref`).
 
 Each function computes exactly what its CUDA kernel computes, with ordinary
@@ -58,3 +58,71 @@ def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
 def sorted_probe(keys_sorted: torch.Tensor, queries: torch.Tensor
                  ) -> torch.Tensor:
     return torch.searchsorted(keys_sorted, queries, side="left").to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention — causal/windowed GQA attention
+# ---------------------------------------------------------------------------
+def _mask(t: int, s: int, causal: bool, window, device) -> torch.Tensor:
+    """[t, s] live (q, k) pairs; the q timeline sits at the tail of the kv
+    timeline (q row i is position i + s - t)."""
+    qpos = torch.arange(t, device=device)[:, None] + (s - t)
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window=None, scale=None) -> torch.Tensor:
+    """q [B,Hq,T,D], k/v [B,Hkv,S,D] (Hq % Hkv == 0).  float32 math; rows
+    with no live key are 0."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf = q.float() * (scale if scale is not None else d ** -0.5)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhtd,bhsd->bhts", qf, kf)
+    mask = _mask(t, s, causal, window, q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(torch.isnan(w), 0.0, w)  # fully-masked rows
+    return torch.einsum("bhts,bhsd->bhtd", w, vf).to(q.dtype)
+
+
+def blocked_attention(q, k, v, causal: bool = True, window=None,
+                      scale=None, block: int = 512) -> torch.Tensor:
+    """Flash-style attention in plain torch: a loop over KV tiles with an
+    online-softmax carry, never the [T, S] logits matrix.  Masked logits
+    hold -1e30, as in the reference."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf = q.float() * (scale if scale is not None else d ** -0.5)
+    q_pos = torch.arange(t, device=q.device) + (s - t)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_run = torch.full((b, hq, t, 1), -1e30, **f32)
+    l_run = torch.zeros((b, hq, t, 1), **f32)
+    acc = torch.zeros((b, hq, t, v.shape[-1]), **f32)
+    for lo in range(0, s, block):
+        kt = k[:, :, lo:lo + block].float().repeat_interleave(group, dim=1)
+        vt = v[:, :, lo:lo + block].float().repeat_interleave(group, dim=1)
+        k_pos = torch.arange(lo, lo + kt.shape[2], device=q.device)
+        mask = torch.ones((t, kt.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        logits = torch.einsum("bhtd,bhsd->bhts", qf, kt)
+        logits = logits.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m_run, logits.amax(-1, keepdim=True))
+        p = torch.exp(logits - m_new).masked_fill(~mask, 0.0)
+        alpha = torch.exp(m_run - m_new)
+        l_run = l_run * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhts,bhsd->bhtd", p, vt)
+        m_run = m_new
+    return (acc / l_run.clamp(min=1e-30)).to(q.dtype)

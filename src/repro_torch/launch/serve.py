@@ -1,0 +1,74 @@
+"""Serving launcher: batched token generation for a dense --arch.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --requests 8 --max-new 16 [--device cpu]
+
+Port of the token-serving half of `repro.launch.serve`, with its flags and
+`--device`: it runs on the card unless told otherwise.  The config is the
+registry's, as in the reference, so attention is plain (`attn_impl="xla"`)
+and the CUDA flash kernel runs only for a config that asks for
+`attn_impl="flash"`.  Weights are drawn from a seeded generator, as the
+reference's launcher does; no checkpoint is read.  `--dataflow` (the
+multi-tenant data-flow engine) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import ARCH_IDS, get_config
+from ..models import make_model
+from ..serve.engine import Engine, Request
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataflow", action="store_true",
+                    help="serve the mixed dataflow-tenant demo workload "
+                         "instead of token generation (not ported yet)")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--rows", type=int, default=512,
+                    help="rows per dataflow request (--dataflow only)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.dataflow:
+        raise NotImplementedError(
+            "--dataflow needs serve/dataflow.py, which is not ported yet "
+            "(ROADMAP.md, Queue 1 item 7)")
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    device = torch.device(args.device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = make_model(cfg, device).init(gen)
+    engine = Engine(model, batch_slots=args.slots, max_seq=args.max_seq)
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, rng.integers(3, 16))
+                    .astype(np.int32),
+                    max_new_tokens=args.max_new,
+                    temperature=args.temperature)
+            for _ in range(args.requests)]
+    t0 = time.perf_counter()
+    engine.generate(reqs)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"[serve] {cfg.name} on {device} ({cfg.attn_impl} attention): "
+          f"{len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s)")
+    for i, r in enumerate(reqs[:4]):
+        print(f"  req{i}: {r.out_tokens}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,4 @@
+"""The model plane (port of `repro.models`): the dense family so far."""
+
+from .config import ModelConfig  # noqa: F401
+from .model import Model, make_model  # noqa: F401

@@ -1,0 +1,262 @@
+"""Shared model-plane layers: norms, RoPE, GQA attention (+cache), MLPs.
+
+Port of `repro.models.layers`.  Functional, as the reference: params are
+plain dicts of tensors, `init_*` build them from a `torch.Generator`, and
+the apply functions take (params, inputs).  Every matmul weight is read as
+`p[name].to(x.dtype)`, as the reference casts it at each use; a tree whose
+weights were cast once beforehand (`transformer.cast_params`) makes those
+casts free and gives the same bits.  The reference's sharding hints
+(`logical_constraint`) have no mesh here and are dropped.
+
+KV caches are updated in place (the reference returns updated copies):
+prefill writes its slice and decode one slot, instead of rewriting the
+whole cache every step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(g: Optional[torch.Generator], shape, scale: float, dtype,
+            device) -> torch.Tensor:
+    """float32 normal * scale, cast to `dtype`; uninitialised when `g` is
+    None (a model allocates first and fills from a generator later)."""
+    if g is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=g, device=g.device, dtype=torch.float32)
+    return (x * scale).to(dtype=dtype, device=device)
+
+
+def _init_dense(g, d_in, d_out, dtype, device, scale=None):
+    scale = scale if scale is not None else d_in ** -0.5
+    return _normal(g, (d_in, d_out), scale, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_rmsnorm(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x [..., T, D] with D even; positions [T].  Half-split rotation."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions.float()[..., :, None] * freqs  # [T, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA + optional qk-norm / bias / sliding window / cache)
+# ---------------------------------------------------------------------------
+def init_attention(g, cfg, device):
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    dt = cfg.p_dtype
+    p = {
+        "wq": _init_dense(g, d, hq * dh, dt, device),
+        "wk": _init_dense(g, d, hkv * dh, dt, device),
+        "wv": _init_dense(g, d, hkv * dh, dt, device),
+        "wo": _init_dense(g, hq * dh, d, dt, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq * dh,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((hkv * dh,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((hkv * dh,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(dh, dt, device)
+        p["k_norm"] = init_rmsnorm(dh, dt, device)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions, use_rope=True):
+    b, t, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(b, t, hq, dh).transpose(1, 2)
+    k = k.reshape(b, t, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, t, hkv, dh).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attention(cfg, q, k, v, causal, window):
+    if cfg.attn_impl == "flash":
+        # the hand-written CUDA kernel on the card (its plain version on
+        # CPU tensors); it takes contiguous [B, H, T, D] operands
+        from ..kernels import ops as kops
+
+        return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window)
+    from ..kernels import ref
+
+    if cfg.attn_impl == "blocked":
+        return ref.blocked_attention(q, k, v, causal=causal, window=window)
+    return ref.attention(q, k, v, causal=causal, window=window)
+
+
+def attention_block(p, cfg, x, positions, causal=True, window=None,
+                    use_rope=True):
+    """Full-sequence attention (training / forward)."""
+    b, t, d = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions, use_rope)
+    o = _attention(cfg, q, k, v, causal, window)
+    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
+    return o @ p["wo"].to(x.dtype)
+
+
+def attention_prefill(p, cfg, x, positions, cache, window=None,
+                      use_rope=True):
+    """Full-sequence attention + KV-cache fill (the fused prefill path).
+
+    Writes the last s positions at slots [0, s) of the cache in place; for
+    windowed (ring-buffer) caches this needs t % s == 0 or t <= s so the
+    ring layout matches `attention_decode`'s slot arithmetic."""
+    b, t, d = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions, use_rope)
+    s = cache["k"].shape[2]
+    if not (t % s == 0 or t <= s):
+        raise ValueError(f"prefill of {t} tokens into a cache of {s} slots "
+                         f"needs t % s == 0 or t <= s")
+    n = min(t, s)
+    cache["k"][:, :, :n] = k[:, :, t - n:]
+    cache["v"][:, :, :n] = v[:, :, t - n:]
+    cache["pos"] = t
+    o = _attention(cfg, q, k, v, True, window)
+    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
+    return o @ p["wo"].to(x.dtype), cache
+
+
+def attention_decode(p, cfg, x, cache, window=None, use_rope=True):
+    """Single-token decode against a ring/linear KV cache, updated in place.
+
+    cache = {"k": [B,Hkv,S,D], "v": [B,Hkv,S,D], "pos": int}.  For
+    sliding-window configs the cache is a ring buffer of size window.  The
+    query-key and weight-value products take the cache's dtype into float32
+    and accumulate there, as the reference's `preferred_element_type=f32`
+    contraction does; the port makes a float32 copy of the layer's cache
+    for each product (bf16 products are exact in float32, so the result is
+    the same up to summation order).
+    """
+    b, t, d = x.shape
+    if t != 1:
+        raise ValueError("decode step takes one new token")
+    pos = int(cache["pos"])
+    positions = torch.tensor([pos], device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, positions, use_rope)
+    ck, cv = cache["k"], cache["v"]
+    s = ck.shape[2]
+    slot = pos % s if window is not None else pos
+    ck[:, :, slot] = k[:, :, 0]
+    cv[:, :, slot] = v[:, :, 0]
+
+    kpos = torch.arange(s, device=x.device)
+    if window is not None:  # ring buffer: absolute position of each slot
+        wrap = (pos // s) * s
+        abs_pos = torch.where(kpos <= pos % s, wrap + kpos, wrap - s + kpos)
+        live = (abs_pos >= 0) & (abs_pos > pos - window) & (abs_pos <= pos)
+    else:
+        live = kpos <= pos
+
+    hq, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    group = hq // hkv
+    qf = q.to(ck.dtype) * dh ** -0.5
+    qg = qf.reshape(b, hkv, group, dh).float()
+    logits = qg @ ck.float().transpose(-1, -2)          # [b, hkv, g, s]
+    logits = logits.masked_fill(~live, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    o = w.to(cv.dtype).float() @ cv.float()             # [b, hkv, g, dh]
+    o = o.reshape(b, hq, 1, dh).to(x.dtype)
+    o = o.transpose(1, 2).reshape(b, 1, hq * dh)
+    cache["pos"] = pos + 1
+    return o @ p["wo"].to(x.dtype), cache
+
+
+def init_kv_cache(cfg, batch: int, seq: int, device, window=None,
+                  dtype=None):
+    s = min(seq, window) if window else seq
+    dt = dtype or cfg.act_dtype
+    shape = (batch, cfg.kv_heads, s, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": 0}
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def init_swiglu(g, d, f, dtype, device):
+    return {"w_gate": _init_dense(g, d, f, dtype, device),
+            "w_up": _init_dense(g, d, f, dtype, device),
+            "w_down": _init_dense(g, f, d, dtype, device)}
+
+
+def swiglu(p, x):
+    dt = x.dtype
+    gate = F.silu((x @ p["w_gate"].to(dt)).float())
+    up = (x @ p["w_up"].to(dt)).float()
+    return (gate * up).to(dt) @ p["w_down"].to(dt)
+
+
+def init_gelu_mlp(g, d, f, dtype, device):
+    return {"w_up": _init_dense(g, d, f, dtype, device),
+            "b_up": torch.zeros((f,), dtype=dtype, device=device),
+            "w_down": _init_dense(g, f, d, dtype, device),
+            "b_down": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def gelu_mlp(p, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    dt = x.dtype
+    h = F.gelu((x @ p["w_up"].to(dt) + p["b_up"].to(dt)).float(),
+               approximate="tanh").to(dt)
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+def init_embedding(g, vocab, d, dtype, device):
+    return {"table": _normal(g, (vocab, d), 0.02, dtype, device)}
+
+
+def embed(p, tokens, dtype):
+    return p["table"].to(dtype)[tokens]
+
+
+def unembed(p, x):
+    """Logits in float32."""
+    return x.float() @ p["table"].float().T

@@ -12,11 +12,13 @@ from __future__ import annotations
 import pytest
 import torch
 
-from repro_torch.configs import flows
+from repro_torch.configs import flows, get_config
 from repro_torch.core import executor
 from repro_torch.core.optimizer import optimize
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.models import make_model
+from repro_torch.serve.engine import Engine, Request
 
 OPS = ("add", "max", "min")
 
@@ -85,3 +87,75 @@ def test_cuda_main_path_matches_eager(cuda, name):
     ref = executor.execute(root, b)
     assert out.equivalent(ref)
     assert cp.run_device(cp.bind_device(b)).to_record_batch().equivalent(ref)
+
+
+# (B, Hq, Hkv, T, S, D), causal, window: the reference kernel test's seven
+# shapes (tests/test_kernels.py), then ragged tiles, T > S and other heads
+ATTN_SHAPES = [
+    ((1, 4, 2, 128, 128, 64), True, None),
+    ((2, 8, 8, 64, 64, 32), True, None),
+    ((1, 4, 1, 128, 256, 64), True, None),
+    ((1, 2, 2, 96, 96, 64), True, 32),
+    ((1, 2, 2, 64, 64, 128), False, None),
+    ((1, 4, 2, 1, 128, 64), True, None),
+    ((1, 1, 1, 256, 256, 64), True, 128),
+    ((2, 16, 8, 1031, 1031, 128), True, None),   # prime T: ragged tiles
+    ((1, 4, 2, 77, 200, 32), False, 50),
+    ((1, 2, 1, 150, 40, 64), True, None),        # T > S: masked rows
+]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,causal,window", ATTN_SHAPES)
+def test_cuda_flash_attention_matches_plain(cuda, dtype, shape, causal,
+                                            window):
+    b, hq, hkv, t, s, d = shape
+    g = torch.Generator().manual_seed(t * 7 + s)
+    q = torch.randn((b, hq, t, d), generator=g).to(cuda, dtype)
+    k = torch.randn((b, hkv, s, d), generator=g).to(cuda, dtype)
+    v = torch.randn((b, hkv, s, d), generator=g).to(cuda, dtype)
+    tops.reset_launches()
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_attention"] == 1
+    want = tref.attention(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        tops.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                             q[..., :48].contiguous())
+    with pytest.raises(TypeError):
+        tops.flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.flash_attention(q.transpose(2, 3).transpose(2, 3)[:, :, ::2], q, q)
+    with pytest.raises(ValueError, match="GQA"):
+        tops.flash_attention(q, q[:, :1].repeat(1, 3, 1, 1),
+                             q[:, :1].repeat(1, 3, 1, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_flash_matches_plain_attention(cuda):
+    # bf16 activations: the kernel and the plain version round differently,
+    # so compare prefill logits within a bound, not greedy tokens
+    cfg = get_config("qwen3-0.6b", reduced=True, dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    flash = make_model(cfg.with_(attn_impl="flash"), cuda).init(gen)
+    plain = make_model(cfg, cuda).load_params(flash.state_dict())
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, 100), generator=rng).to(cuda)
+    tops.reset_launches()
+    lf, _ = flash.prefill({"tokens": toks}, flash.init_decode_state(4, 128))
+    assert tops.LAUNCHES["flash_attention"] == cfg.n_layers
+    lp, _ = plain.prefill({"tokens": toks}, plain.init_decode_state(4, 128))
+    torch.testing.assert_close(lf, lp, rtol=5e-2, atol=5e-2)
+    reqs = [Request(prompt=toks[i, : 20 + 30 * i].cpu().numpy(),
+                    max_new_tokens=5) for i in range(3)]
+    Engine(flash, batch_slots=2, max_seq=128).generate(reqs)
+    assert all(len(r.out_tokens) == 5 for r in reqs)
