@@ -5,27 +5,32 @@
 Drives the port's two main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
 optimize -> compile(use_kernels=True) -> CompiledPlan.run / run_device — for
-the paper's four evaluation flows at serving scale, every result checked
-against the port's eager numpy executor; and token serving — Engine ->
+the paper's four evaluation flows at serving scale, on the default
+megakernel route and on the composed route, every result checked against
+the port's eager numpy executor; and token serving — Engine ->
 Model.prefill / decode_step — for qwen3-0.6b at full width and depth with
 the flash-attention kernel.  Phases, one or more lines each:
 
   device   the card's name and power limit (nvidia-smi), first line
-  build    the three kernels built from the checkout with nvcc (one nvcc
+  build    the five kernels built from the checkout with nvcc (one nvcc
            per source, in parallel), ptxas lines
-  kernels  each kernel against its plain torch version on the card; flash
+  kernels  each kernel against its plain torch version on the card; the
+           span kernels bitwise on every slot at 8,388,608 rows; flash
            attention at the reference test's seven shapes and the served
            shapes, timed against the plain version and SDPA, with a bound
   flows    q15 (6M lineitem rows), q7 (1M), clickstream (16M), textmining
-           (1M), each through run and through bind_device + run_device:
-           both equal to the eager executor; every kernel call on the way
-           held against the kernel's plain version on its own inputs; CUDA
-           launches per kernel
-  timing   warm run / run_device of q15; each kernel at the shapes q15
-           gives it: time, plain time, library-call time and bound
-  profile  torch.profiler over a warm q15 run_device: device busy time,
-           idle share against the unprofiled step time, top device ops,
-           repo-kernel time
+           (1M), each through run and through bind_device + run_device on
+           the megakernel route (the default) and the composed route
+           (use_megakernel=False): all equal to the eager executor, mega
+           equal to composed bit for bit; every kernel call on the way held
+           against the kernel's plain version on its own inputs; the routes
+           and the CUDA launches per kernel and route
+  timing   warm run / run_device of q15 on both routes, taken in turns;
+           each kernel at the shapes q15 gives it: time, plain time,
+           library-call time and bound
+  profile  torch.profiler over a warm q15 run_device on each route: device
+           kernels per step, device busy time, idle share against the
+           unprofiled step time, top device ops, repo-kernel time
   serve    qwen3-0.6b (28 layers, d_model 1024, f32 weights, bf16
            activations, attn_impl="flash") from a seeded generator; 8
            requests of 1024-2048 prompt tokens and 32 greedy new tokens
@@ -74,10 +79,23 @@ KERNEL_SOURCES = {
                        "src/repro/kernels/segmented_scan.py:83"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:112"),
+    "span_compact": ("src/repro_torch/csrc/span_compact.cu",
+                     "src/repro/kernels/megakernel.py:313"),
+    "span_segment": ("src/repro_torch/csrc/span_segment.cu",
+                     "src/repro/kernels/megakernel.py:313"),
 }
-DATA_KERNELS = ("sorted_probe", "segmented_scan")  # the data-flow path's
+# the data-flow path's kernels
+DATA_KERNELS = ("sorted_probe", "segmented_scan", "span_compact",
+                "span_segment")
+SPAN_KERNELS = ("span_compact", "span_segment")
 REPO_KERNELS = ("probe_kernel", "tile_reduce", "tile_carries", "tile_apply",
-                "flash_bf16", "flash_f32")
+                "compact_count", "compact_scatter", "block_offsets",
+                "segment_count", "segment_write", "flash_bf16", "flash_f32")
+# the routes the default span budget gives at these sizes
+EXPECTED_ROUTES = {"q15": (("mega", 0, 4),), "q7": (("mega", 0, 7),),
+                   "clickstream": (("mega", 0, 4),), "textmining": None}
+ROUTES = ("mega", "composed")
+SPAN_ROWS = 8_388_608  # q15's lineitem capacity at 6M rows
 
 # token serving: qwen3-0.6b at full width and depth
 SERVE_ARCH = "qwen3-0.6b"
@@ -200,6 +218,7 @@ def phase_kernels(res: dict, dev) -> None:
                     f"bound_ms={bound[0]:.4f} ({bound[1]})")
             del v
     torch.cuda.empty_cache()
+    _span_kernel_checks(res, dev)
     _flash_kernel_checks(res, dev)
 
 
@@ -313,19 +332,52 @@ def _flow(name: str):
     return root, make(FLOW_ROWS[name], seed=1)
 
 
+def _bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and bits (floats compared as their bit patterns,
+    so NaNs and signed zeros must match too)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    elif a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _span_outputs(name: str, out) -> list:
+    """A span kernel's outputs as one flat list of tensors."""
+    if name == "span_compact":
+        cols, valid, count = out
+        return list(cols) + [valid, count]
+    return list(out)
+
+
+def _rows(batch) -> list:
+    """Valid rows as sorted tuples, fields by name, values bit-exact."""
+    b = batch.to_numpy().compact()
+    fields = sorted(b.fields)
+    rows = zip(*[np.asarray(b.columns[f]).tolist() for f in fields])
+    return sorted(rows, key=lambda t: tuple(repr(x) for x in t))
+
+
 class Checker:
     """Wraps every kernel wrapper while a flow runs: each call on the main
     path is held at once against the kernel's plain torch version on the
     same inputs (sorted_probe, integer and max/min results exactly; float64
-    add within SCAN_TOL, relative).  The plain versions touch no launch
-    count.  Keeps the first call of each kernel for the timing phase."""
+    add within SCAN_TOL, relative; the span kernels bitwise on every output
+    slot).  The plain versions touch no launch count.  Keeps the first call
+    of each kernel for the timing phase."""
 
-    NAMES = ("sorted_probe", "segment_reduce", "segmented_scan")
+    NAMES = ("sorted_probe", "segment_reduce", "segmented_scan",
+             "span_compact", "span_segment")
+    KERNEL = {"sorted_probe": "sorted_probe", "segment_reduce":
+              "segmented_scan", "segmented_scan": "segmented_scan",
+              "span_compact": "span_compact", "span_segment": "span_segment"}
 
     def __init__(self):
         self.calls: list = []        # one dict per wrapper call
         self.first: dict = {}        # kernel wrapper -> (args, kwargs)
-        self.max_err = {"sorted_probe": 0.0, "segmented_scan": 0.0}
+        self.max_err = {k: 0.0 for k in DATA_KERNELS}
         self.failures: list = []
 
     def __enter__(self):
@@ -351,12 +403,42 @@ class Checker:
         def call(*a, **k):
             got = real(*a, **k)
             self.first.setdefault(name, (a, k))
-            self._check(name, a, k, got, plain(*a, **k))
+            if name in SPAN_KERNELS:
+                self._check_span(name, a, got, plain(*a, **k))
+            else:
+                self._check(name, a, k, got, plain(*a, **k))
             return got
         return call
 
+    def _record(self, name: str, rec: dict, ok: bool, err: float) -> None:
+        kernel = self.KERNEL[name]
+        rec.update(ok=ok, max_abs_err=err)
+        self.calls.append(rec)
+        self.max_err[kernel] = max(self.max_err[kernel], err)
+        if not ok:
+            self.failures.append(rec)
+
+    def _check_span(self, name, a, got, want) -> None:
+        cols, valid = list(a[0]), a[1]
+        g, w = _span_outputs(name, got), _span_outputs(name, want)
+        ok = len(g) == len(w) and all(_bitwise_equal(x, y)
+                                      for x, y in zip(g, w))
+        err = 0.0
+        if not ok:
+            err = max((float((x.double() - y.double()).abs().max())
+                       for x, y in zip(g, w)
+                       if x.shape == y.shape and x.numel()),
+                      default=float("inf"))
+        rec = {"wrapper": name, "op": "pack" if name == "span_compact"
+               else "segment", "dtype": ",".join(str(c.dtype)[6:]
+                                                 for c in cols),
+               "shape": [valid.shape[0]], "k": len(cols),
+               "count": int(w[-1]), "check": "bitwise" if ok else "differs"}
+        if name == "span_compact":
+            rec["capacity"] = int(a[2])
+        self._record(name, rec, ok, err)
+
     def _check(self, name, a, k, got, want) -> None:
-        kernel = "sorted_probe" if name == "sorted_probe" else "segmented_scan"
         v = a[0]
         if name == "sorted_probe":
             op = "probe"
@@ -383,17 +465,18 @@ class Checker:
             how = "exact" if ok else "differs"
             err = 0.0 if ok else float(
                 (got.to(torch.float64) - want.to(torch.float64)).abs().max())
-        rec.update(ok=ok, check=how, max_abs_err=err)
-        self.calls.append(rec)
-        self.max_err[kernel] = max(self.max_err[kernel], err)
-        if not ok:
-            self.failures.append(rec)
+        rec["check"] = how
+        self._record(name, rec, ok, err)
 
     def summary(self) -> str:
         parts = []
         for c in self.calls:
             size = f"N={c['shape'][0]}" + (f" M={c['queries']}"
                                            if "queries" in c else "")
+            if "k" in c:
+                size += f" K={c['k']}" + (f" C={c['capacity']}" if
+                                          "capacity" in c else "") \
+                    + f" count={c['count']}"
             parts.append(f"{c['wrapper']} {c['op']} {c['dtype']} {size}: "
                          f"{c['check']}")
         return "; ".join(parts)
@@ -401,85 +484,130 @@ class Checker:
 
 def phase_flows(res: dict, dev) -> dict:
     """The main path: every flow optimized, compiled with the kernels and
-    driven through `run` and through `bind_device` + `run_device`; launch
-    counts are set to zero just before and read just after.  Every kernel
-    call on the way is checked against its plain version, and both results
-    against the eager executor."""
+    driven through `run` and through `bind_device` + `run_device`, on the
+    default megakernel route and on the composed route; launch counts are
+    set to zero just before each route's run and read just after.  Every
+    kernel call on the way is checked against its plain version, every
+    result against the eager executor, and the two routes' rows against
+    each other, bit for bit."""
     from repro_torch.core import executor
     from repro_torch.core.optimizer import optimize
     from repro_torch.kernels import ops
 
-    plans, total, calls = {}, {k: 0 for k in DATA_KERNELS}, {}
+    plans, calls = {}, {}
+    total = {r: {k: 0 for k in DATA_KERNELS} for r in ROUTES}
     max_err = {k: 0.0 for k in DATA_KERNELS}
     for name in ("q15", "q7", "clickstream", "textmining"):
         t = time.perf_counter()
         root, b = _flow(name)
-        cp = optimize(root).best.compile(use_kernels=True, device=dev)
+        best = optimize(root).best
+        cps = {"mega": best.compile(use_kernels=True, device=dev),
+               "composed": best.compile(use_kernels=True, device=dev,
+                                        use_megakernel=False)}
         t_plan = time.perf_counter() - t
-        with Checker() as chk:
-            ops.reset_launches()
-            out = cp.run(b)
-            out_dev = cp.run_device(cp.bind_device(b))
-            torch.cuda.synchronize()
-            launches = {k: ops.LAUNCHES[k] for k in DATA_KERNELS}
-        if chk.failures:
-            raise AssertionError(f"{name}: kernel calls disagree with their "
-                                 f"plain versions: {chk.failures}")
-        n_calls = len(chk.calls)
-        for k, v in launches.items():
-            total[k] += v
-            max_err[k] = max(max_err[k], chk.max_err[k])
-        calls[name] = chk.calls
         t = time.perf_counter()
         ref = executor.execute(root, b)
         t_eager = time.perf_counter() - t
-        dev_rb = out_dev.to_record_batch()
-        for what, got in (("run", out), ("run_device", dev_rb)):
-            if got.capacity == 0 or not got.equivalent(ref):
-                raise AssertionError(f"{name} {what}: {got.capacity} rows, "
-                                     f"eager {ref.capacity}, not equivalent")
+        rows = {}
+        for route, cp in cps.items():
+            with Checker() as chk:
+                ops.reset_launches()
+                out = cp.run(b)
+                out_dev = cp.run_device(cp.bind_device(b))
+                torch.cuda.synchronize()
+                launches = {k: ops.LAUNCHES[k] for k in DATA_KERNELS}
+            if chk.failures:
+                raise AssertionError(f"{name} {route}: kernel calls disagree "
+                                     f"with their plain versions: "
+                                     f"{chk.failures}")
+            routes = cp._last_routes
+            want = EXPECTED_ROUTES[name] if route == "mega" else None
+            if routes != want:
+                raise AssertionError(f"{name} {route}: routes {routes}, "
+                                     f"expected {want}")
+            dev_rb = out_dev.to_record_batch()
+            for what, got in (("run", out), ("run_device", dev_rb)):
+                if got.capacity == 0 or not got.equivalent(ref):
+                    raise AssertionError(
+                        f"{name} {route} {what}: {got.capacity} rows, eager "
+                        f"{ref.capacity}, not equivalent")
+            rows[route] = (_rows(out), _rows(dev_rb))
+            for k, v in launches.items():
+                total[route][k] += v
+                max_err[k] = max(max_err[k], chk.max_err[k])
+            calls[f"{name} {route}"] = chk.calls
+            say("flows", f"{name} {route} route {routes}: launches "
+                f"{launches}; kernel calls ({len(chk.calls)}, each held "
+                f"against its plain version): {chk.summary() or 'none'}")
+            if name == "q15" and route == "mega":
+                res["q15_first_calls"] = chk.first
+        if rows["mega"] != rows["composed"]:
+            raise AssertionError(f"{name}: the mega route's rows differ from "
+                                 f"the composed route's")
         say("flows", f"{name} {FLOW_ROWS[name]} {FLOW_SOURCE[name]} rows -> "
-            f"{out.capacity} rows; run and run_device equal eager; plan "
-            f"{cp.flow.op_names()[::-1]}; launches {launches}; data+optimize "
-            f"{t_plan:.1f}s, eager {t_eager:.1f}s")
-        say("flows", f"{name} kernel calls ({n_calls}, each held against its "
-            f"plain version): {chk.summary() or 'none'}")
+            f"{out.capacity} rows; both routes' run and run_device equal "
+            f"eager; mega equals composed bit for bit; plan "
+            f"{cp.flow.op_names()[::-1]}; data+optimize {t_plan:.1f}s, "
+            f"eager {t_eager:.1f}s")
         if name == "q15":
-            res["q15_first_calls"] = chk.first
-        plans[name] = (cp, b)
-    for k, v in total.items():
-        if v == 0:
-            raise AssertionError(f"kernel {k} was never launched on the path")
-    res["launches"] = total
+            plans[name] = (cps, b)
+    for k in DATA_KERNELS:
+        if total["mega"][k] == 0:
+            raise AssertionError(f"kernel {k} was never launched on the "
+                                 f"mega route: {total['mega']}")
+    for k in SPAN_KERNELS:
+        if total["composed"][k]:
+            raise AssertionError(f"span kernel {k} launched on the composed "
+                                 f"route: {total['composed']}")
+    res["launches"] = total["mega"]
+    res["launches_by_route"] = total
     res["path_max_abs_err"] = max_err
     res["kernel_calls"] = calls
-    say("flows", f"launches over the four flows (run + run_device): {total}")
+    say("flows", f"launches over the four flows (run + run_device) by "
+        f"route: {total}")
     return plans
+
+
+def _quartiles(xs) -> tuple:
+    q1, q2, q3 = np.percentile(xs, [25, 50, 75])
+    return float(q1), float(q2), float(q3)
 
 
 def phase_timing(res: dict, plans: dict) -> list:
     from repro_torch.core.scans import identity_for
     from repro_torch.kernels import ops, ref
 
-    cp, b = plans["q15"]
-    masked = cp.bind_device(b)
-    run_ms, dev_ms = [], []
-    for _ in range(5):
-        t = time.perf_counter()
-        cp.run(b)
-        run_ms.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        cp.run_device(masked)
-        torch.cuda.synchronize()
-        dev_ms.append((time.perf_counter() - t) * 1e3)
-    res["q15_run_ms"] = float(np.median(run_ms))
-    res["q15_run_device_ms"] = float(np.median(dev_ms))
-    st = cp.cache_stats()
-    say("timing", f"q15 warm x5: run median {res['q15_run_ms']:.2f} ms, "
-        f"run_device median {res['q15_run_device_ms']:.3f} ms "
-        f"({FLOW_ROWS['q15'] / res['q15_run_device_ms'] * 1e3:.4g} lineitem "
-        f"rows/s); executable builds {st.traces}, hits {st.hits}")
+    cps, b = plans["q15"]
+    masked = cps["mega"].bind_device(b)
+    run_ms = {r: [] for r in ROUTES}
+    dev_ms = {r: [] for r in ROUTES}
+    for i in range(5):
+        for r in (ROUTES if i % 2 == 0 else ROUTES[::-1]):
+            t = time.perf_counter()
+            cps[r].run(b)
+            run_ms[r].append((time.perf_counter() - t) * 1e3)
+    for i in range(41):  # in turns: mega, composed, composed, mega, ...
+        for r in (ROUTES if i % 2 == 0 else ROUTES[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cps[r].run_device(masked)
+            torch.cuda.synchronize()
+            dev_ms[r].append((time.perf_counter() - t) * 1e3)
+    res["q15_timing"] = {}
+    for r in ROUTES:
+        q1, med, q3 = _quartiles(dev_ms[r])
+        res["q15_timing"][r] = {
+            "run_ms_median": float(np.median(run_ms[r])),
+            "run_device_ms_median": med, "run_device_ms_q1": q1,
+            "run_device_ms_q3": q3, "run_device_reps": len(dev_ms[r])}
+        st = cps[r].cache_stats()
+        say("timing", f"q15 {r} route, warm, in turns: run median of 5 "
+            f"{np.median(run_ms[r]):.2f} ms; run_device median of "
+            f"{len(dev_ms[r])} {med:.3f} ms (quartiles {q1:.3f} / {q3:.3f}, "
+            f"{FLOW_ROWS['q15'] / med * 1e3:.4g} lineitem rows/s); "
+            f"executable builds {st.traces}, hits {st.hits}")
+    res["q15_run_ms"] = res["q15_timing"]["mega"]["run_ms_median"]
+    res["q15_run_device_ms"] = res["q15_timing"]["mega"]["run_device_ms_median"]
 
     seen = res.pop("q15_first_calls")
     errs = res["path_max_abs_err"]
@@ -514,13 +642,133 @@ def phase_timing(res: dict, plans: dict) -> list:
         cuda_ms(lambda: ref.segment_reduce(v, sid, nseg, op=op, valid=valid), 50),
         bytes_, nrow, lib,
         f"segment_reduce {op}, N={nrow} rows, {nseg} segments, {v.dtype}"))
+    # span_compact at q15's first interior boundary (no single PyTorch call
+    # packs with the clamped tail and the count: library_ms is null)
+    (cols, valid, cap), _ = seen["span_compact"]
+    count = int(valid.sum())
+    kernels.append(_entry(
+        "span_compact", res["launches"], errs["span_compact"],
+        cuda_ms(lambda: ops.span_compact(cols, valid, cap), 50),
+        cuda_ms(lambda: ref.span_compact(cols, valid, cap), 20),
+        _compact_bytes(cols, valid.shape[0], cap, count), valid.shape[0],
+        None, f"N={valid.shape[0]} mask, K={len(cols)} columns "
+        f"({', '.join(str(c.dtype)[6:] for c in cols)}), C={cap}, count "
+        f"{count}"))
+    # span_segment at q15's first in-span Reduce
+    (keys, valid), _ = seen["span_segment"]
+    groups = int(ref.span_segment(keys, valid)[2])
+    kernels.append(_entry(
+        "span_segment", res["launches"], errs["span_segment"],
+        cuda_ms(lambda: ops.span_segment(keys, valid), 50),
+        cuda_ms(lambda: ref.span_segment(keys, valid), 20),
+        _segment_bytes(keys, valid.shape[0]),
+        valid.shape[0] * max(len(keys), 1), None,
+        f"N={valid.shape[0]} rows, {len(keys)} key(s) "
+        f"({', '.join(str(k.dtype)[6:] for k in keys)}), {groups} groups"))
     for k in kernels:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         say("timing", f"{k['name']} at q15's shape ({k.pop('shape')}): "
             f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
-            f"library_ms={k['library_ms']:.4f} bound_ms={k['bound_ms']:.4f} "
-            f"({k['bound_by']}); max_abs_err over the path's calls "
-            f"{k['max_abs_err']:g}")
+            f"library_ms={lib} bound_ms={k['bound_ms']:.4f} "
+            f"({k['bound_by']}); launches on the mega route {k['launches']}; "
+            f"max_abs_err over the path's calls {k['max_abs_err']:g}")
     return kernels
+
+
+def _compact_bytes(cols, n: int, cap: int, count: int) -> int:
+    """span_compact's least traffic: the mask, the rows it packs (and the
+    last row, which fills the tail) read once; C slots of every column,
+    the output mask and the count written once."""
+    row = sum(c.element_size() * (c.numel() // max(n, 1)) for c in cols)
+    moved = min(count, cap) + (1 if count < cap else 0)
+    return n + moved * row + cap * (row + 1) + 8
+
+
+def _segment_bytes(keys, n: int) -> int:
+    """span_segment's least traffic: the keys (each distinct tensor once)
+    and the mask read once, seg (int64) and is_start written once, and the
+    count."""
+    distinct = {k.data_ptr(): k for k in keys}.values()
+    return n + sum(k.element_size() * n for k in distinct) + 8 * n + n + 8
+
+
+def _span_kernel_checks(res: dict, dev) -> None:
+    """The span kernels against their plain versions, bitwise on every
+    slot, at q15's lineitem capacity (8,388,608 rows): span_compact for K =
+    1, 3, 6 and 12 mixed int64/float64 columns (12: more than one scatter
+    launch's 8) into q15's interior capacity with the valid count below
+    it, above it and 0; span_segment on one int64 key and on mixed
+    int64/float64 keys, packed, gappy and empty, and on 10 keys of which
+    only the last two tell slots apart (the kernel's flag pass)."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator().manual_seed(4)
+    n, cap = SPAN_ROWS, 1_048_576
+    cols = [torch.randint(-2**62, 2**62, (n,), generator=g) if j % 2 == 0
+            else torch.randn(n, generator=g, dtype=torch.float64)
+            for j in range(12)]
+    cols = [c.to(dev) for c in cols]
+    u = torch.rand(n, generator=g)
+    masks = {"count < C": u < 0.06, "count > C": u < 0.3,
+             "count 0": torch.zeros(n, dtype=torch.bool)}
+    rows = []
+    for k in (1, 3, 6, 12):
+        for label, m in masks.items():
+            valid = m.to(dev)
+            got = ops.span_compact(cols[:k], valid, cap)
+            want = ref.span_compact(cols[:k], valid, cap)
+            torch.cuda.synchronize()
+            g_out, w_out = (_span_outputs("span_compact", got),
+                            _span_outputs("span_compact", want))
+            if not all(_bitwise_equal(a, b) for a, b in zip(g_out, w_out)):
+                raise AssertionError(f"span_compact N={n} K={k} C={cap} "
+                                     f"{label}: differs from plain")
+            count = int(want[2])
+            ms = cuda_ms(lambda: ops.span_compact(cols[:k], valid, cap), 20)
+            plain = cuda_ms(lambda: ref.span_compact(cols[:k], valid, cap), 5)
+            bound = _bound(_compact_bytes(cols[:k], n, cap, count), n)
+            rows.append({"kernel": "span_compact", "k": k, "case": label,
+                         "count": count, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
+            say("kernels", f"span_compact N={n} K={k} (int64/float64) C={cap} "
+                f"{label} (count {count}): bitwise equal on every slot; "
+                f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bound[0]:.4f} "
+                f"({bound[1]})")
+    a = torch.sort(torch.randint(0, n // 100, (n,), generator=g)).values
+    b = torch.tensor([0.0, -0.0, 1.5, 2.5], dtype=torch.float64)[
+        torch.randint(0, 4, (n,), generator=g)]
+    z = torch.zeros(n, dtype=torch.int64, device=dev)
+    keys = {"1 int64 key": [a.to(dev)],
+            "int64+float64 keys": [a.to(dev), b.to(dev)],
+            "10 keys (8 constant)": [z] * 8 + [a.to(dev), b.to(dev)]}
+    packed = torch.arange(n) < (n * 7) // 10
+    cases = [("1 int64 key", "packed"), ("int64+float64 keys", "packed"),
+             ("int64+float64 keys", "gappy"), ("int64+float64 keys", "count 0"),
+             ("10 keys (8 constant)", "packed"),
+             ("10 keys (8 constant)", "gappy")]
+    seg_masks = {"packed": packed, "gappy": u < 0.5,
+                 "count 0": torch.zeros(n, dtype=torch.bool)}
+    for kname, mname in cases:
+        ks, valid = keys[kname], seg_masks[mname].to(dev)
+        got = ops.span_segment(ks, valid)
+        want = ref.span_segment(ks, valid)
+        torch.cuda.synchronize()
+        if not all(_bitwise_equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"span_segment N={n} {kname} {mname}: "
+                                 f"differs from plain")
+        groups = int(want[2])
+        ms = cuda_ms(lambda: ops.span_segment(ks, valid), 20)
+        plain = cuda_ms(lambda: ref.span_segment(ks, valid), 5)
+        bound = _bound(_segment_bytes(ks, n), n * len(ks))
+        rows.append({"kernel": "span_segment", "keys": kname, "case": mname,
+                     "groups": groups, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+        say("kernels", f"span_segment N={n} {kname}, {mname} ({groups} "
+            f"groups): bitwise equal on every slot; ms={ms:.4f} "
+            f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
+    res["span_kernel_checks"] = rows
+    del cols, keys, z
+    torch.cuda.empty_cache()
 
 
 def _bound(bytes_: float, opers: float,
@@ -570,45 +818,58 @@ def _device_busy(prof) -> tuple:
 
 
 def phase_profile(res: dict, plans: dict) -> None:
+    """One profiled warm q15 run_device per route, against that route's
+    unprofiled median step from the timing phase."""
     from torch.profiler import ProfilerActivity, profile
 
-    cp, b = plans["q15"]
-    masked = cp.bind_device(b)
-    cp.run_device(masked)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    cps, b = plans["q15"]
+    masked = cps["mega"].bind_device(b)
+    res["q15_profile"] = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for r in ROUTES:
+        cp = cps[r]
         cp.run_device(masked)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    busy, n_kernels, per_name = _device_busy(prof)
-    if busy <= 0:
-        say("profile", "the profiler recorded no device kernels: device "
-            "busy time and idle share not measured")
-        return
-    repo = sum(t for k, t in per_name.items()
-               if any(r in k for r in REPO_KERNELS))
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    plain_us = res["q15_run_device_ms"] * 1e3
-    res["q15_profile"] = {
-        "profiled_wall_us": wall_us, "device_busy_us": busy,
-        "idle_share_profiled": 1 - busy / wall_us,
-        "unprofiled_median_us": plain_us,
-        "idle_share": max(0.0, 1 - busy / plain_us),
-        "host_us_per_device_kernel": plain_us / n_kernels,
-        "repo_kernel_us": repo, "device_kernels": n_kernels, "top": top}
-    say("profile", f"q15 run_device: device busy {busy:.0f} us in "
-        f"{n_kernels} device kernels, repo kernels {repo:.0f} us; against "
-        f"the unprofiled median run_device {plain_us:.0f} us idle share "
-        f"{res['q15_profile']['idle_share']:.3f}, "
-        f"{plain_us / n_kernels:.1f} us of wall per device kernel; the "
-        f"profiled run's own wall {wall_us:.0f} us (idle share "
-        f"{1 - busy / wall_us:.3f}) includes the profiler's overhead")
-    for k, t in top:
-        say("profile", f"  {t:10.1f} us  {k[:90]}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "q15_profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(row_limit=40))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            cp.run_device(masked)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        busy, n_kernels, per_name = _device_busy(prof)
+        if busy <= 0:
+            say("profile", f"{r}: the profiler recorded no device kernels: "
+                "device busy time and idle share not measured")
+            continue
+        repo: dict = {}  # repo kernel (short name) -> summed device us
+        for k, t in per_name.items():
+            short = next((n for n in REPO_KERNELS if n in k), None)
+            if short is not None:
+                repo[short] = repo.get(short, 0.0) + t
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+        plain_us = res["q15_timing"][r]["run_device_ms_median"] * 1e3
+        res["q15_profile"][r] = {
+            "profiled_wall_us": wall_us, "device_busy_us": busy,
+            "idle_share_profiled": 1 - busy / wall_us,
+            "unprofiled_median_us": plain_us,
+            "idle_share": max(0.0, 1 - busy / plain_us),
+            "host_us_per_device_kernel": plain_us / n_kernels,
+            "repo_kernel_us": sum(repo.values()), "repo_kernels": repo,
+            "device_kernels": n_kernels, "top": top}
+        say("profile", f"q15 {r} route run_device: {n_kernels} device "
+            f"kernels per step, device busy {busy:.0f} us, repo kernels "
+            f"{sum(repo.values()):.0f} us; against the unprofiled median "
+            f"run_device {plain_us:.0f} us idle share "
+            f"{res['q15_profile'][r]['idle_share']:.3f}, "
+            f"{plain_us / n_kernels:.1f} us of wall per device kernel; the "
+            f"profiled run's own wall {wall_us:.0f} us (idle share "
+            f"{1 - busy / wall_us:.3f}) includes the profiler's overhead")
+        for k, t in top:
+            say("profile", f"  {r}: {t:10.1f} us  {k[:90]}")
+        say("profile", f"  {r}: repo kernels, device us per step: " + ", ".join(
+            f"{k} {t:.1f}" for k, t in repo.items()))
+        with open(os.path.join(OUT_DIR, f"q15_profile_{r}.txt"), "w") as f:
+            f.write(prof.key_averages().table(row_limit=40))
 
 
 class AttnChecker:

@@ -99,7 +99,12 @@ def enum_alternatives_alg1(flow: Node,
             # setRoot(A_-r, r): replace s with r                      (line 24)
             d_minus_s = r.with_children(s.children[0])
             for a_minus_s in enum_alternatives_alg1(d_minus_s, mtab):  # 25-26
-                add(s.with_children(a_minus_s))  # line 27
+                alt = s.with_children(a_minus_s)  # line 27
+                # the closure's `reorder._valid` check, which the paper's
+                # pseudocode (and the reference) leaves out: a reordering
+                # must keep the flow's attribute set
+                if alt.attrs() == flow.attrs():
+                    add(alt)
 
     mtab[key] = alts  # line 28
     return alts

@@ -349,13 +349,32 @@ def _exec_map(op: MapOp, b: MaskedBatch) -> MaskedBatch:
 
 
 def _exec_reduce(op: ReduceOp, b: MaskedBatch, use_kernels: bool,
-                 use_order: bool = True) -> MaskedBatch:
+                 use_order: bool = True, obs: Optional[dict] = None,
+                 contiguous: bool = False) -> MaskedBatch:
+    """`obs`, when given, receives the observed group count under key
+    "groups" (the stage-boundary statistic of the adaptive loop, DESIGN.md
+    §9); it is the count the group mask needs anyway.
+
+    `contiguous` asserts the caller just PACKED `b` (valid rows form a
+    prefix: a megakernel span's interior compaction, DESIGN.md §10).  When
+    the order also covers the key, segmentation then compares adjacent
+    slots (`_segments_contiguous`, on the card the `span_segment` kernel)
+    instead of the gap-tolerant walk.  On a valids-first batch both give
+    identical `(seg, is_start)` — the previous valid row IS the adjacent
+    slot — so results are bit-identical."""
     key = tuple(op.key)
+    ngroups = None
     if use_order and order_covers(b.order, key):
         # input already groups equal keys contiguously: segment directly over
         # the (possibly gappy) slots, no sort, no repack
         sb = b
-        seg, is_start = _segments_gappy(b.columns, key, b.valid)
+        if contiguous:
+            from ..kernels import ops as kops
+
+            seg, is_start, ngroups = kops.span_segment(
+                [b.columns[k] for k in key], b.valid)
+        else:
+            seg, is_start = _segments_gappy(b.columns, key, b.valid)
         base_order = b.order
     else:
         sb, seg, is_start = _sort_by_key(b, key)
@@ -365,7 +384,11 @@ def _exec_reduce(op: ReduceOp, b: MaskedBatch, use_kernels: bool,
     segcls = segment_reduce_backend(use_kernels)
     segops = segcls(seg, nseg, record_valid=sb.valid, is_start=is_start)
     col = invoke.run_kat_udf(op.udf, dict(sb.columns), segops, op.key)
-    group_valid = torch.arange(nseg, device=dev) < is_start.sum()
+    if ngroups is None:
+        ngroups = is_start.sum()
+    if obs is not None:
+        obs["groups"] = ngroups
+    group_valid = torch.arange(nseg, device=dev) < ngroups
     w = eff_writes(op)
 
     parts = []
@@ -442,7 +465,8 @@ def _probe_side(op: MatchOp, rb: MaskedBatch, rcode_raw: torch.Tensor,
 
 
 def _exec_match_pk(op: MatchOp, lb: MaskedBatch, rb: MaskedBatch,
-                   use_kernels: bool, use_order: bool = True) -> MaskedBatch:
+                   use_kernels: bool, use_order: bool = True,
+                   obs: Optional[dict] = None) -> MaskedBatch:
     """Equi-join where the right side is unique on its key (PK side): each
     left row matches at most one right row — sorted-search probe."""
     lcode, rcode_raw = _match_codes(op, lb, rb)
@@ -455,6 +479,8 @@ def _exec_match_pk(op: MatchOp, lb: MaskedBatch, rb: MaskedBatch,
         pos = torch.maximum(pos, first_valid)
     pos = torch.clamp(pos, 0, rb.capacity - 1)
     hit = (rcode[pos] == lcode) & lb.valid & rvalid[pos]
+    if obs is not None:  # observed probe hits (join-fanout feedback)
+        obs["groups"] = hit.sum()
 
     gathered = {f: v[pos] for f, v in rcols.items()}
     col = invoke.run_pair_udf(op.udf, dict(lb.columns), gathered)
@@ -476,7 +502,8 @@ def _exec_match_pk(op: MatchOp, lb: MaskedBatch, rb: MaskedBatch,
 
 
 def _exec_match_anti(op: MatchOp, lb: MaskedBatch, rb: MaskedBatch,
-                     use_kernels: bool, use_order: bool = True) -> MaskedBatch:
+                     use_kernels: bool, use_order: bool = True,
+                     obs: Optional[dict] = None) -> MaskedBatch:
     """Left anti join: keep exactly the LEFT rows whose key has NO valid
     partner on the right.  No UDF runs; the output is a slot-aligned mask
     over the left input, so the left side's order survives.  The presence
@@ -490,6 +517,8 @@ def _exec_match_anti(op: MatchOp, lb: MaskedBatch, rb: MaskedBatch,
     pos = torch.clamp(pos, 0, rb.capacity - 1)
     present = (rcode[pos] == lcode) & rvalid[pos]
     keep = lb.valid & ~present
+    if obs is not None:  # observed survivors (selectivity feedback)
+        obs["groups"] = keep.sum()
     return MaskedBatch(dict(lb.columns), keep, lb.order)
 
 
@@ -546,7 +575,8 @@ def _exec_cross(op, lb: MaskedBatch, rb: MaskedBatch,
 
 
 def _exec_cogroup(op: CoGroupOp, lb: MaskedBatch, rb: MaskedBatch,
-                  use_kernels: bool, use_order: bool = True) -> MaskedBatch:
+                  use_kernels: bool, use_order: bool = True,
+                  obs: Optional[dict] = None) -> MaskedBatch:
     """Align both sides on the union key domain with static shapes."""
     nl, nr = lb.capacity, rb.capacity
     dev = lb.device
@@ -567,7 +597,10 @@ def _exec_cogroup(op: CoGroupOp, lb: MaskedBatch, rb: MaskedBatch,
     seg_all[order] = seg_sorted  # inverse permutation
     lseg, rseg = seg_all[:nl], seg_all[nl:]
     nseg = nl + nr
-    group_valid = torch.arange(nseg, device=dev) < is_start.sum()
+    ngroups = is_start.sum()
+    if obs is not None:
+        obs["groups"] = ngroups
+    group_valid = torch.arange(nseg, device=dev) < ngroups
 
     # Per-side segment-sorted order (first()/group scans need contiguity).
     # A side ordered EXACTLY on its key degenerates its segment sort to the

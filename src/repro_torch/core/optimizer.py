@@ -47,7 +47,7 @@ class RankedPlan:
 
     def compile(self, use_kernels: bool = False, compact_slack: float = 2.0,
                 cache=None, use_order: bool = True,
-                use_megakernel: bool = False, device="cuda"):
+                use_megakernel: Optional[bool] = None, device="cuda"):
         """Lower this plan into a ready-to-run `pipeline.CompiledPlan` on
         `device`.
 
@@ -80,7 +80,7 @@ class OptResult:
 
     def compile(self, use_kernels: bool = False, compact_slack: float = 2.0,
                 cache=None, use_order: bool = True,
-                use_megakernel: bool = False, device="cuda"):
+                use_megakernel: Optional[bool] = None, device="cuda"):
         """Compile the best plan: `optimize(flow).compile().run(bindings)`.
 
         Repeated optimize+compile of equal-shaped flows returns handles that
@@ -162,7 +162,11 @@ class _UnaryGroupSearch:
         group.  Mirrors Algorithm 1 lines 19-27: the original root always
         qualifies; a root s of the sub-group additionally qualifies when
         `reorderable(r, s)` (the checks only read group-invariant inputs:
-        UDF properties, keys, and the sub-group's attribute set)."""
+        UDF properties, keys, and the sub-group's attribute set) and the
+        reordered group keeps flow's attribute set — the closure's
+        `reorder._valid` check, without which a projecting Reduce moved
+        above a field-adding Map loses that Map's fields.  The reference's
+        group search lacks this check (ROADMAP.md, Queue 3 item 1)."""
         key = _mtab_key(flow)
         hit = self._roots.get(key)
         if hit is not None:
@@ -178,6 +182,8 @@ class _UnaryGroupSearch:
                     continue
                 try:
                     alt_sub = r.with_children(s_sub)  # Alg. 1 line 24
+                    if s.with_children(alt_sub).attrs() != flow.attrs():
+                        continue
                 except (ValueError, KeyError):
                     continue
                 names.add(s.name)

@@ -1,8 +1,8 @@
 """Compiled plan pipelines: fused lowering + a plan-executable cache.
 
-Port of `repro.core.pipeline` (the composed path; see below for what is not
-ported yet).  The optimizer's output only pays off if the chosen plan runs
-fast *repeatedly*: the serving pattern is many small request batches over a
+Port of `repro.core.pipeline` (see below for what is not ported yet).  The
+optimizer's output only pays off if the chosen plan runs fast
+*repeatedly*: the serving pattern is many small request batches over a
 handful of flow shapes.  This module lowers a plan once into a pipeline of
 STAGES (DESIGN.md §5):
 
@@ -16,7 +16,13 @@ STAGES (DESIGN.md §5):
   ladder, so the number of distinct shapes stays O(log n);
 * stages carry the ORDER properties the physical layer reasons about
   (`Stage.in_orders`/`out_order`, DESIGN.md §8): a stage whose input is
-  already sorted on its key skips the per-batch sort entirely.
+  already sorted on its key skips the per-batch sort entirely;
+* runs of fusable stages route through the whole-stage megakernel span
+  (`kernels.megakernel`, DESIGN.md §10) by default: dead columns are pruned
+  at interior boundaries, which the `span_compact` kernel packs, and a
+  Reduce on a just-packed input segments with the `span_segment` kernel.
+  `REPRO_MEGAKERNEL=0` (or `use_megakernel=False`) keeps the composed
+  per-stage walk.
 
 PyTorch runs eagerly, so an "executable" is the stage walk bound to one
 source signature, with every compaction capacity computed once when it is
@@ -24,7 +30,7 @@ built: a warm call is a fixed sequence of device launches with no host
 sync.  Executables are cached in an `ExecutableCache` keyed on a
 commute-invariant SEMANTIC fingerprint of the flow (`semantic_key`) plus
 source capacity buckets and runtime orders, the stages' order assumptions,
-`use_kernels`, `compact_slack` and `use_order`:
+`use_kernels`, `compact_slack`, `use_order` and the megakernel route:
 
     res = optimize(flow)
     cp = res.compile(use_kernels=True)     # device="cuda" by default
@@ -35,9 +41,9 @@ Device-resident serving: `run` pays a host round trip per call (bind numpy
 → device → compute → fetch).  `bind_device` stages batches onto the device
 once and `run_device` executes masked-in/masked-out with no host transfer.
 
-Not ported yet (ROADMAP.md): the whole-stage megakernel route
-(`use_megakernel=True` raises) and the adaptive observe → re-plan half
-(`AdaptiveConfig`, observation vectors, hot swaps).
+Not ported yet (ROADMAP.md, Queue 1 item 6): the adaptive observe →
+re-plan half (`AdaptiveConfig`, observation vectors, hot swaps).
+`run_stages` still reports each stage's boundary observations when asked.
 """
 
 from __future__ import annotations
@@ -484,11 +490,18 @@ class _Interned:
 # Stage execution
 # ---------------------------------------------------------------------------
 def execute_stage(stage: Stage, ins: Sequence[M.MaskedBatch],
-                  use_kernels: bool, use_order: bool = True) -> M.MaskedBatch:
+                  use_kernels: bool, use_order: bool = True,
+                  obs: Optional[dict] = None,
+                  contiguous_in: bool = False) -> M.MaskedBatch:
     """Run one stage's computation on masked batches.
 
     Order elision keys off the input batches' `order` metadata; callers
-    attach `stage.in_orders` (for forwarded inputs) before invoking."""
+    attach `stage.in_orders` (for forwarded inputs) before invoking.
+    `obs`, when given, receives the stage's KAT/Match side-channel count
+    (observed groups / probe hits / survivors) under "groups".
+    `contiguous_in` asserts the first input was just prefix-packed (a
+    megakernel interior boundary): a Reduce then segments with adjacent
+    compares instead of the gap-tolerant walk, bit-identically."""
     if stage.kind == "chain":
         b = ins[0]
         for op in stage.ops:
@@ -496,7 +509,8 @@ def execute_stage(stage: Stage, ins: Sequence[M.MaskedBatch],
         return b
     node = stage.top
     if stage.kind == "reduce":
-        return M._exec_reduce(node, ins[0], use_kernels, use_order)
+        return M._exec_reduce(node, ins[0], use_kernels, use_order, obs,
+                              contiguous=contiguous_in)
     if stage.kind == "limit":
         return M._exec_limit(node, ins[0], use_order)
     if stage.kind == "match":
@@ -504,26 +518,30 @@ def execute_stage(stage: Stage, ins: Sequence[M.MaskedBatch],
         if node.anti:
             # checked before pk_side: commute() refuses anti nodes, and the
             # sides must not swap anyway (only left survives)
-            return M._exec_match_anti(node, lb, rb, use_kernels, use_order)
+            return M._exec_match_anti(node, lb, rb, use_kernels, use_order,
+                                      obs)
         if node.hints.pk_side == "right":
-            return M._exec_match_pk(node, lb, rb, use_kernels, use_order)
+            return M._exec_match_pk(node, lb, rb, use_kernels, use_order, obs)
         if node.hints.pk_side == "left":
             from .reorder import commute as _commute
 
             return M._exec_match_pk(_commute(node), rb, lb, use_kernels,
-                                    use_order)
+                                    use_order, obs)
         return M._exec_cross(node, lb, rb, node.left_key, node.right_key)
     if stage.kind == "cross":
         return M._exec_cross(node, *ins)
     if stage.kind == "cogroup":
-        return M._exec_cogroup(node, *ins, use_kernels, use_order=use_order)
+        return M._exec_cogroup(node, *ins, use_kernels, use_order=use_order,
+                               obs=obs)
     raise TypeError(f"unknown stage kind {stage.kind!r}")
 
 
 def run_stages(stages: Sequence[Stage], bindings: Mapping[str, M.MaskedBatch],
                use_kernels: bool, compact_slack: float,
                stats_memo: dict, scale: float = 1.0,
-               use_order: bool = True) -> M.MaskedBatch:
+               use_order: bool = True, observe: Optional[list] = None,
+               caps: Optional[list] = None,
+               routes: Optional[tuple] = None) -> M.MaskedBatch:
     """Execute a lowered stage list on masked batches.
 
     Compaction fires once per stage boundary (not per fused operator), to
@@ -531,7 +549,17 @@ def run_stages(stages: Sequence[Stage], bindings: Mapping[str, M.MaskedBatch],
     `stats_memo` with the bound batches' actual sizes
     (`cost.seed_source_stats`) so capacities track the data really flowing.
     Compaction is stable, so stage-boundary repacking PRESERVES the order
-    the next stage's elision relies on."""
+    the next stage's elision relies on.
+
+    Observation (DESIGN.md §9): with `observe` a list, each stage appends
+    `(valid_rows_before_compaction, kat_aux)` as device scalars (aux is -1
+    for a stage without one); `caps` receives the capacity each stage
+    compacts to.
+
+    `routes` (from `kernels.megakernel.plan_routes`, DESIGN.md §10) sends
+    runs of stages through the fused span executor; None (or a "solo"
+    entry) is the composed per-stage walk.  A span appends the SAME
+    per-stage observe/caps entries as the composed walk."""
     results: list[Optional[M.MaskedBatch]] = [None] * len(stages)
 
     def resolve(ref: tuple, o: tuple) -> M.MaskedBatch:
@@ -540,14 +568,53 @@ def run_stages(stages: Sequence[Stage], bindings: Mapping[str, M.MaskedBatch],
             b = b.with_order(o)
         return b
 
-    last: Optional[M.MaskedBatch] = None
-    for i, st in enumerate(stages):
-        orders = st.in_orders or ((),) * len(st.inputs)
-        ins = [resolve(r, o) for r, o in zip(st.inputs, orders)]
-        out = execute_stage(st, ins, use_kernels, use_order)
+    def boundary(st: Stage, out: M.MaskedBatch, obs: Optional[dict],
+                 count=None) -> M.MaskedBatch:
         cap = min(out.capacity,
                   M.planned_capacity(st.top, stats_memo, compact_slack, scale))
-        last = results[i] = out.compact(cap) if cap < out.capacity else out
+        if caps is not None:
+            caps.append(cap)
+        if observe is not None:
+            if obs is not None:  # composed stage: count taken here
+                observe.append((out.valid.sum(), obs.get("groups", -1)))
+            else:  # span tail: count already taken in the span
+                observe.append(count)
+        return out.compact(cap) if cap < out.capacity else out
+
+    entries = routes or tuple(("solo", i) for i in range(len(stages)))
+    last: Optional[M.MaskedBatch] = None
+    for entry in entries:
+        if entry[0] == "solo":
+            i = entry[1]
+            st = stages[i]
+            orders = st.in_orders or ((),) * len(st.inputs)
+            ins = [resolve(r, o) for r, o in zip(st.inputs, orders)]
+            obs: Optional[dict] = {} if observe is not None else None
+            out = execute_stage(st, ins, use_kernels, use_order, obs)
+            last = results[i] = boundary(st, out, obs)
+            continue
+        from ..kernels import megakernel as MK
+
+        _, i, j = entry
+        span = stages[i:j]
+        ins_per = []
+        for k, st in enumerate(span):
+            orders = st.in_orders or ((),) * len(st.inputs)
+            ins_per.append([
+                None if (k > 0 and r == ("stage", i + k - 1))
+                else resolve(r, o)
+                for r, o in zip(st.inputs, orders)])
+        planned = [M.planned_capacity(st.top, stats_memo, compact_slack, scale)
+                   for st in span]
+        raw, span_obs, applied = MK.run_span(span, ins_per, planned,
+                                             use_kernels, use_order,
+                                             observe=observe is not None)
+        if caps is not None:
+            caps.extend(applied)
+        if observe is not None:
+            observe.extend(span_obs[:-1])
+        last = results[j - 1] = boundary(
+            span[-1], raw, None, count=span_obs[-1] if span_obs else None)
     return last
 
 
@@ -590,7 +657,10 @@ class ExecutableCache:
 
     Key: `(semantic_key(flow), stage order signature, per-source (name,
     schema signature, capacity bucket, runtime order), use_kernels,
-    compact_slack, use_order)`.  `traces` counts builds, so tests can assert
+    compact_slack, use_order, megakernel routes)`, with `use_megakernel`
+    inside the semantic part.  No dispatch mode joins it: one executable
+    serves both devices, because each kernel wrapper dispatches on its
+    tensors' device when it runs.  `traces` counts builds, so tests can assert
     that warm calls never rebuild.  Capacity defaults to
     `$REPRO_EXEC_CACHE_CAP` (256); eviction drops the LRU entry and
     increments `evictions`.  All map access is mutex-guarded: two threads
@@ -644,6 +714,17 @@ def executable_cache() -> ExecutableCache:
     return _CACHE
 
 
+# megakernel routing is on by default; `REPRO_MEGAKERNEL=0` is the global
+# kill switch (the composed per-stage walk everywhere)
+MEGAKERNEL_ENV = "REPRO_MEGAKERNEL"
+
+_MISSING = object()  # routes memo sentinel (None is a valid cached value)
+
+
+def _megakernel_default() -> bool:
+    return os.environ.get(MEGAKERNEL_ENV, "1") != "0"
+
+
 def _schema_sig(schema) -> tuple:
     return (tuple(schema.fields),
             tuple(str(schema.dtype(f)) for f in schema.fields))
@@ -663,6 +744,10 @@ class CompiledPlan:
     `bind_device(bindings)` / `run_device(masked)` split the host round trip
     out of the serving loop: bind once (or bind fresh batches as they
     arrive), keep every masked batch — inputs AND outputs — on device.
+
+    `use_megakernel` (default on unless `REPRO_MEGAKERNEL=0`) routes the
+    fusable stage runs of each source signature through megakernel spans;
+    `_last_routes` holds the routes of the latest call.
     """
 
     flow: Node
@@ -670,6 +755,8 @@ class CompiledPlan:
     use_kernels: bool = False
     compact_slack: float = 2.0
     use_order: bool = True
+    use_megakernel: bool = dataclasses.field(
+        default_factory=lambda: _megakernel_default())
     cache: ExecutableCache = dataclasses.field(default_factory=executable_cache)
     device: torch.device = dataclasses.field(
         default_factory=lambda: resolve_device("cuda"))
@@ -678,8 +765,15 @@ class CompiledPlan:
         self.device = resolve_device(self.device)
         self._sources = {n.name: n for n in self.flow.iter_nodes()
                          if isinstance(n, Source)}
+        # fused and composed lowerings of one flow never share an
+        # executable; the capacity-dependent routes join the key too
         self._sem = _Interned((semantic_key(self.flow),
-                               _order_sig(self.stages)))
+                               _order_sig(self.stages),
+                               self.use_megakernel))
+        # route planning costs host time on every dispatch: memoized per
+        # source capacity signature
+        self._routes_memo: dict = {}
+        self._last_routes: Optional[tuple] = None
         # static per-source schema signatures, computed once: stringifying
         # dtypes per call costs more than a warm serving step
         self._ssig = {name: _schema_sig(src.out_schema)
@@ -741,9 +835,25 @@ class CompiledPlan:
         return out, tuple(sig)
 
     # -- executable lookup ---------------------------------------------------
+    def _routes(self, src_caps: Mapping[str, int]) -> Optional[tuple]:
+        """Megakernel route plan for these source capacities (None when
+        nothing fuses); deterministic in (stages, capacities)."""
+        if not self.use_megakernel or len(self.stages) < 2:
+            return None
+        key = tuple(sorted(src_caps.items()))
+        hit = self._routes_memo.get(key, _MISSING)
+        if hit is _MISSING:
+            from ..kernels import megakernel as MK
+
+            hit = MK.plan_routes(self.stages, dict(src_caps))
+            self._routes_memo[key] = hit
+        return hit
+
     def _executable(self, source_sig: tuple):
+        routes = self._routes({s[0]: s[2] for s in source_sig})
+        self._last_routes = routes
         key = (self._sem, source_sig, self.use_kernels, self.compact_slack,
-               self.use_order)
+               self.use_order, routes)
         fn = self.cache.get(key)
         if fn is None:
             self.cache.traces += 1
@@ -759,7 +869,7 @@ class CompiledPlan:
                     (only,) = mb.values()
                     return only
                 return run_stages(stages, mb, use_kernels, slack, stats_memo,
-                                  use_order=use_order)
+                                  use_order=use_order, routes=routes)
 
             self.cache.put(key, fn)
         return fn
@@ -787,21 +897,22 @@ def compile_plan(flow_or_plan, use_kernels: bool = False,
                  compact_slack: float = 2.0,
                  cache: Optional[ExecutableCache] = None,
                  use_order: bool = True,
-                 use_megakernel: bool = False,
+                 use_megakernel: Optional[bool] = None,
                  device="cuda") -> CompiledPlan:
     """Lower a logical flow — or a `PhysPlan`, whose shipping strategies and
     physical `Props` then thread into the stages — into a `CompiledPlan`
     that runs on `device` ("cuda" by default; raises when there is no CUDA
-    device and `device="cpu"` was not asked for)."""
-    if use_megakernel:
-        raise NotImplementedError(
-            "the whole-stage megakernel span is not ported yet "
-            "(ROADMAP.md, Queue 2 item 3)")
+    device and `device="cpu"` was not asked for).  `use_megakernel`
+    (default on; `REPRO_MEGAKERNEL=0` turns it off everywhere) routes
+    fusable stage runs through the whole-stage megakernel (DESIGN.md
+    §10)."""
     if isinstance(flow_or_plan, PhysPlan):
         flow, stages = flow_or_plan.node, lower_phys(flow_or_plan)
     else:
         flow, stages = flow_or_plan, lower(flow_or_plan)
+    if use_megakernel is None:
+        use_megakernel = _megakernel_default()
     return CompiledPlan(flow=flow, stages=stages,
                         use_kernels=use_kernels, compact_slack=compact_slack,
-                        use_order=use_order, cache=cache or _CACHE,
-                        device=resolve_device(device))
+                        use_order=use_order, use_megakernel=use_megakernel,
+                        cache=cache or _CACHE, device=resolve_device(device))

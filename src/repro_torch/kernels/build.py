@@ -3,8 +3,8 @@
 Each source under `repro_torch/csrc/` has a plain C interface and includes no PyTorch
 header, so `nvcc` compiles it in seconds into its own shared library under
 `build/kernels/` at the repository root (listed in `.gitignore`).  The
-library's name carries a hash of its source and flags, so an edited source
-is never served from a stale build.  `build_all()` starts one `nvcc` per
+library's name carries a hash of its source, the shared headers (`*.cuh`)
+and the flags, so an edited source is never served from a stale build.  `build_all()` starts one `nvcc` per
 source, all at once, and waits for them; `library(name)` builds on first use.
 
 Nothing here runs at import time, and nothing falls back: a missing `nvcc`
@@ -30,7 +30,9 @@ FLAGS = ("-O3", "-std=c++17", ARCH, "-shared", "-Xcompiler", "-fPIC",
 
 SOURCES = {"sorted_probe": "sorted_probe.cu",
            "segmented_scan": "segmented_scan.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "span_compact": "span_compact.cu",
+           "span_segment": "span_segment.cu"}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -54,6 +56,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (_CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -124,6 +127,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, ctypes.c_float, i,
                        i, p]
         fn.restype = i
+    elif name == "span_compact":
+        fn = lib.repro_span_compact
+        fn.argtypes = [p, ll, i, p, p, p, p, ll, p, p, p, p]
+        fn.restype = i
+        scratch = lib.repro_span_scratch
+        scratch.argtypes = [ll]
+        scratch.restype = ll
+    elif name == "span_segment":
+        fn = lib.repro_span_segment
+        fn.argtypes = [i, p, p, p, ll, p, p, p, p, p, p]
+        fn.restype = i
+        scratch = lib.repro_span_segment_scratch
+        scratch.argtypes = [ll]
+        scratch.restype = ll
     else:  # pragma: no cover - SOURCES and this table move together
         raise KeyError(name)
 

@@ -2,7 +2,9 @@
 counts.
 
 Port of the `segmented_scan`, `segment_reduce`, `KernelSegmentOps`,
-`sorted_probe` and `flash_attention` entries of `repro.kernels.ops`.  A wrapper given CPU tensors
+`sorted_probe` and `flash_attention` entries of `repro.kernels.ops`, plus
+`span_compact` and `span_segment`, the megakernel span's boundary kernels
+(`kernels.megakernel`).  A wrapper given CPU tensors
 runs the kernel's plain torch version (`kernels.ref`); given CUDA tensors it
 launches the hand-written CUDA kernel (`repro_torch/csrc/`, built on first use
 by `kernels.build`) on the current stream, or raises — there is no quiet
@@ -16,6 +18,8 @@ The attention kernel masks ragged tails, so no block size is chosen here.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..core.scans import identity_for, scan_identity
@@ -24,7 +28,8 @@ from ..core.udf import SegmentOps, mean_of
 from . import build, ref
 
 # CUDA launches per kernel since the last `reset_launches()`
-LAUNCHES = {"sorted_probe": 0, "segmented_scan": 0, "flash_attention": 0}
+LAUNCHES = {"sorted_probe": 0, "segmented_scan": 0, "flash_attention": 0,
+            "span_compact": 0, "span_segment": 0}
 
 # the data plane's column types (the reference runs with 64-bit JAX)
 _DTYPES = {torch.int64: 0, torch.float64: 1}
@@ -282,3 +287,111 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Megakernel span: boundary compaction and contiguous segmentation
+# ---------------------------------------------------------------------------
+_SPAN_MAX_K = 8  # keys span_segment compares without a flag pass (kMaxK)
+# span_segment key kinds (csrc/span_segment.cu): integers by width, floats
+# compared as IEEE values
+_KEY_KINDS = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
+              torch.uint8: 3, torch.bool: 3, torch.float64: 4,
+              torch.float32: 5}
+
+
+def _ptrs(tensors) -> "ctypes.Array":
+    return (ctypes.c_void_p * max(len(tensors), 1))(
+        *[t.data_ptr() for t in tensors])
+
+
+def _ints(values) -> "ctypes.Array":
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def _span_check(name: str, tensors, valid: torch.Tensor) -> None:
+    if valid.ndim != 1 or valid.dtype != torch.bool:
+        raise TypeError(f"{name} takes a 1-D bool mask, got "
+                        f"{valid.dtype} {tuple(valid.shape)}")
+    if valid.shape[0] < 1:
+        raise ValueError(f"{name} takes at least one row")
+    for t in tensors:
+        if t.ndim < 1 or t.shape[0] != valid.shape[0]:
+            raise ValueError(f"{name}: column {tuple(t.shape)} against a "
+                             f"mask of {valid.shape[0]} rows")
+
+
+def span_compact(columns, valid: torch.Tensor, capacity: int):
+    """Stable valids-first pack of `columns` and `valid` into `capacity`
+    slots: `(columns', valid', count)`, bit for bit `MaskedBatch.compact`
+    (slots past the count hold the last input row) plus the
+    pre-compaction valid count (int64, 0-d).  One launch of
+    `csrc/span_compact.cu` on the card (its scatter runs once per group of
+    8 columns); columns of any type and number move as raw words."""
+    columns = list(columns)
+    if not _on_cuda(valid, *columns):
+        return ref.span_compact(columns, valid, capacity)
+    _span_check("span_compact", columns, valid)
+    if capacity < 1:
+        raise ValueError(f"span_compact capacity {capacity} < 1")
+    dev, n = valid.device, valid.shape[0]
+    valid = valid.contiguous()
+    ins, outs, wsz, wpr = [], [], [], []
+    for c in columns:
+        c = c.contiguous()
+        row = c.element_size() * (c.numel() // n)
+        w = next(w for w in (8, 4, 2, 1)
+                 if row % w == 0 and c.data_ptr() % w == 0)
+        ins.append(c)
+        outs.append(torch.empty((capacity,) + tuple(c.shape[1:]),
+                                dtype=c.dtype, device=dev))
+        wsz.append(w)
+        wpr.append(row // w)
+    valid_out = torch.empty(capacity, dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    lib = build.library("span_compact")
+    scratch = torch.empty(lib.repro_span_scratch(n), dtype=torch.int64,
+                          device=dev)
+    err = lib.repro_span_compact(
+        valid.data_ptr(), n, len(ins), _ptrs(ins), _ptrs(outs),
+        _ints(wsz), _ints(wpr), capacity, valid_out.data_ptr(),
+        scratch.data_ptr(), count.data_ptr(), _stream(dev))
+    build.check(err, "span_compact")
+    LAUNCHES["span_compact"] += 1
+    return outs, valid_out, count
+
+
+def span_segment(keys, valid: torch.Tensor):
+    """Segments of a packed, key-ordered batch: `(seg, is_start, count)`,
+    bit for bit `masked._segments_contiguous` plus the group count (int64,
+    0-d).  One launch of `csrc/span_segment.cu` on the card; keys are 1-D
+    integer, bool, float32 or float64 columns, any number of them (past 8
+    the kernel first folds them into one difference flag a slot)."""
+    keys = list(keys)
+    if not _on_cuda(valid, *keys):
+        return ref.span_segment(keys, valid)
+    _span_check("span_segment", keys, valid)
+    for k in keys:
+        if k.ndim != 1 or k.dtype not in _KEY_KINDS:
+            raise TypeError(f"span_segment takes 1-D keys of "
+                            f"{sorted(str(d) for d in _KEY_KINDS)}, got "
+                            f"{k.dtype} {tuple(k.shape)}")
+    dev, n = valid.device, valid.shape[0]
+    valid = valid.contiguous()
+    keys = [k.contiguous() for k in keys]
+    seg = torch.empty(n, dtype=torch.int64, device=dev)
+    is_start = torch.empty(n, dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    flags = (torch.empty(n, dtype=torch.uint8, device=dev)
+             if len(keys) > _SPAN_MAX_K else None)
+    lib = build.library("span_segment")
+    scratch = torch.empty(lib.repro_span_segment_scratch(n),
+                          dtype=torch.int64, device=dev)
+    err = lib.repro_span_segment(
+        len(keys), _ptrs(keys), _ints([_KEY_KINDS[k.dtype] for k in keys]),
+        valid.data_ptr(), n, seg.data_ptr(), is_start.data_ptr(),
+        None if flags is None else flags.data_ptr(), scratch.data_ptr(),
+        count.data_ptr(), _stream(dev))
+    build.check(err, "span_segment")
+    LAUNCHES["span_segment"] += 1
+    return seg, is_start, count

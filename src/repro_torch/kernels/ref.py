@@ -126,3 +126,45 @@ def blocked_attention(q, k, v, causal: bool = True, window=None,
         acc = acc * alpha + torch.einsum("bhts,bhsd->bhtd", p, vt)
         m_run = m_new
     return (acc / l_run.clamp(min=1e-30)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# span_compact / span_segment — the megakernel span's boundary work
+# ---------------------------------------------------------------------------
+def span_compact(columns, valid: torch.Tensor, capacity: int):
+    """Stable valids-first pack of `columns` (each [N, ...]) and the mask
+    [N] into `capacity` slots: `(columns', valid', count)`.  Valid row r
+    (0-based rank among valid rows) lands in slot r when r < capacity;
+    every slot at or past `count` holds the LAST input row, as the clamp of
+    `scans.pack_indices` leaves it; `count` is the pre-compaction number of
+    valid rows (int64, 0-d).  Computed with a rank scatter, independently
+    of `MaskedBatch.compact`'s search, which it equals on every slot."""
+    n = valid.shape[0]
+    dev = valid.device
+    rank = torch.cumsum(valid.to(torch.int64), 0) - 1
+    count = rank[-1] + 1
+    # each output slot's source row; ranks past capacity go to a dump slot
+    dst = torch.where(valid & (rank < capacity), rank, capacity)
+    src = torch.full((capacity + 1,), n - 1, dtype=torch.int64, device=dev)
+    src.scatter_(0, dst, torch.arange(n, dtype=torch.int64, device=dev))
+    src = src[:capacity]
+    out_valid = torch.arange(capacity, device=dev) < count
+    return [c[src] for c in columns], out_valid, count
+
+
+def span_segment(keys, valid: torch.Tensor):
+    """Segments of a packed, key-ordered batch: `(seg, is_start, count)`.
+    A valid slot starts a segment when it is slot 0, its predecessor is
+    invalid, or any key differs from the predecessor's (`!=`, so float keys
+    compare as IEEE values); `seg = max(cumsum(is_start) - 1, 0)` (int64)
+    and `count` the number of starts — `masked._segments_contiguous` plus
+    the group count, in the kernel's formulation."""
+    differs = torch.ones_like(valid)
+    differs[1:] = False
+    for k in keys:
+        differs[1:] |= k[1:] != k[:-1]
+    prev_valid = torch.zeros_like(valid)
+    prev_valid[1:] = valid[:-1]
+    is_start = valid & (differs | ~prev_valid)
+    seg = torch.clamp(scans.cumsum(is_start) - 1, min=0)
+    return seg, is_start, is_start.sum()

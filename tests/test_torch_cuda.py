@@ -9,6 +9,7 @@ CPU mode).  Imports no JAX, so it runs on a machine that has only the port:
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -87,6 +88,156 @@ def test_cuda_main_path_matches_eager(cuda, name):
     ref = executor.execute(root, b)
     assert out.equivalent(ref)
     assert cp.run_device(cp.bind_device(b)).to_record_batch().equivalent(ref)
+
+
+def _rows(batch) -> list:
+    """Valid rows as sorted tuples, fields by name, values bit-exact."""
+    b = batch.to_numpy().compact()
+    fields = sorted(b.fields)
+    rows = zip(*[b.columns[f].tolist() for f in fields])
+    return sorted(rows, key=lambda t: tuple(repr(x) for x in t))
+
+
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _masks(g, n):
+    packed = torch.zeros(n, dtype=torch.bool)
+    packed[:n // 3] = True
+    return {"none": torch.zeros(n, dtype=torch.bool),
+            "all": torch.ones(n, dtype=torch.bool), "packed": packed,
+            "sparse": torch.rand(n, generator=g) < 0.05,
+            "dense": torch.rand(n, generator=g) < 0.9}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 3, 6, 8, 9, 12, 17])
+def test_cuda_span_compact_matches_plain(cuda, k):
+    g = torch.Generator().manual_seed(k)
+    for n in (1, 4095, 4097, 300_007):
+        makers = [lambda: torch.randint(-10**12, 10**12, (n,), generator=g),
+                  lambda: torch.randn(n, generator=g, dtype=torch.float64),
+                  lambda: torch.rand((n, 3), generator=g) < 0.5,
+                  lambda: torch.randint(-9, 9, (n,), generator=g,
+                                        dtype=torch.int32)]
+        cols = [makers[j % 4]().to(cuda) for j in range(k)]
+        for kind, valid in _masks(g, n).items():
+            valid = valid.to(cuda)
+            count = int(valid.sum())
+            for cap in sorted({1, max(count // 2, 1), max(count, 1),
+                               count + 3, n + 9}):
+                tops.reset_launches()
+                got = tops.span_compact(cols, valid, cap)
+                torch.cuda.synchronize()
+                assert tops.LAUNCHES["span_compact"] == 1
+                want = tref.span_compact(cols, valid, cap)
+                assert int(got[2]) == int(want[2]) == count
+                assert torch.equal(got[1], want[1]), (n, kind, cap)
+                for a, b in zip(got[0], want[0]):
+                    assert torch.equal(_bits(a), _bits(b)), (n, kind, cap)
+
+
+@pytest.mark.cuda
+def test_cuda_span_segment_matches_plain(cuda):
+    g = torch.Generator().manual_seed(5)
+    for n in (1, 4096, 4097, 300_007):
+        a = torch.sort(torch.randint(0, max(n // 16, 2), (n,),
+                                     generator=g)).values
+        pick = torch.randint(0, 4, (n,), generator=g)
+        b = torch.tensor([0.0, -0.0, 1.5, float("nan")],
+                         dtype=torch.float64)[pick]
+        c = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+        d = torch.rand(n, generator=g) < 0.5
+        z = torch.zeros(n, dtype=torch.int64)
+        cols = {f: t.to(cuda) for f, t in zip("abcdz", (a, b, c, d, z))}
+        # past 8 keys the kernel folds them into a flag a slot first; "z"
+        # keys make only the keys past the eighth tell slots apart
+        for kind, valid in _masks(g, n).items():
+            valid = valid.to(cuda)
+            for keys in ("a", "ab", "bc", "abcd", "abcdabcda",
+                         "zzzzzzzzab", "zzzzzzzzzzzzzzzzzc"):
+                ks = [cols[f] for f in keys]
+                got = tops.span_segment(ks, valid)
+                want = tref.span_segment(ks, valid)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]), (n, kind, keys)
+                assert torch.equal(got[1], want[1]), (n, kind, keys)
+                assert int(got[2]) == int(want[2])
+
+
+@pytest.mark.cuda
+def test_cuda_span_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    valid = torch.ones(8, dtype=torch.bool, device=cuda)
+    col = torch.zeros(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="bool mask"):
+        tops.span_compact([col], valid.to(torch.uint8), 4)
+    with pytest.raises(ValueError, match="rows"):
+        tops.span_compact([col[:4]], valid, 4)
+    with pytest.raises(TypeError):
+        tops.span_segment([col.to(torch.float16)], valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q15", "clickstream", "q7"])
+def test_cuda_mega_route_matches_composed(cuda, name):
+    root, make = flows.FLOWS[name]()
+    b = make(50_000, seed=4)
+    res = optimize(root)
+    on = res.best.compile(use_kernels=True, device=cuda, use_megakernel=True)
+    off = res.best.compile(use_kernels=True, device=cuda,
+                           use_megakernel=False)
+    tops.reset_launches()
+    got = on.run(b)
+    torch.cuda.synchronize()
+    assert on._last_routes is not None
+    for k in ("span_compact", "span_segment", "sorted_probe"):
+        assert tops.LAUNCHES[k] > 0, (k, tops.LAUNCHES)
+    assert _rows(got) == _rows(off.run(b))  # bit for bit
+    assert got.equivalent(executor.execute(root, b))
+
+
+def _wide_filter(ir, out):
+    out.emit(ir.copy(), where=ir.get("c1") % 5 == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_mega_route_packs_a_wide_live_set(cuda):
+    """Filter, then PK match, over a 12-column table: all 12 columns are
+    live at the span's boundary, more than one scatter launch moves."""
+    from repro_torch.core import flow as F
+    from repro_torch.core.operators import Hints
+    from repro_torch.core.record import RecordBatch, Schema
+
+    n, width = 200_000, 12
+    fields = {"k": np.int64}
+    fields.update({f"c{j}": np.int64 if j % 2 else np.float64
+                   for j in range(1, width)})
+    left = F.map_(F.source("L", Schema.of(**fields), num_records=n),
+                  _wide_filter, name="Keep", hints=Hints(selectivity=0.2))
+    right = F.source("R", Schema.of(k2=np.int64, w=np.int64),
+                     num_records=1000)
+    root = F.match(left, right, ["k"], ["k2"], hints=Hints(pk_side="right"))
+    g = torch.Generator().manual_seed(12)
+    cols = {"k": torch.randint(0, 1200, (n,), generator=g)}
+    for j in range(1, width):
+        cols[f"c{j}"] = (torch.randint(-10**9, 10**9, (n,), generator=g)
+                         if j % 2 else torch.randn(n, generator=g,
+                                                   dtype=torch.float64))
+    b = {"L": RecordBatch({f: v.numpy() for f, v in cols.items()}),
+         "R": RecordBatch({"k2": torch.randperm(1000, generator=g).numpy(),
+                           "w": torch.randint(0, 99, (1000,),
+                                              generator=g).numpy()})}
+    on = optimize(root).best.compile(use_kernels=True, device=cuda)
+    off = optimize(root).best.compile(use_kernels=True, device=cuda,
+                                      use_megakernel=False)
+    tops.reset_launches()
+    got = on.run(b)
+    torch.cuda.synchronize()
+    assert on._last_routes == (("mega", 0, 2),)
+    assert tops.LAUNCHES["span_compact"] == 1
+    assert _rows(got) == _rows(off.run(b))  # bit for bit
+    assert got.equivalent(executor.execute(root, b))
 
 
 # (B, Hq, Hkv, T, S, D), causal, window: the reference kernel test's seven

@@ -81,10 +81,23 @@ def test_cache_is_a_bounded_lru():
     assert c.stats().evictions == 1
 
 
-def test_megakernel_is_not_ported_yet():
-    root, _ = TORCH.flows.q15()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_plan(root, use_megakernel=True, device="cpu")
+def test_compile_defaults_to_the_megakernel_route(monkeypatch):
+    from repro.core.pipeline import MEGAKERNEL_ENV
+    from repro.core.pipeline import compile_plan as jcompile_plan
+
+    monkeypatch.delenv(MEGAKERNEL_ENV, raising=False)
+    for name in PAPER_FLOWS:
+        troot, _ = TORCH.flows.FLOWS[name]()
+        jroot, make = JAX.flows.FLOWS[name]()
+        jb = make(1500, seed=2)
+        d = {s: b.columns for s, b in jb.items()}
+        cp = compile_plan(troot, device="cpu", cache=ExecutableCache())
+        jcp = jcompile_plan(jroot, cache=JCache())
+        assert cp.use_megakernel and jcp.use_megakernel
+        assert toptimize(troot).compile(device="cpu").use_megakernel
+        cp.run(interop.bindings(d))
+        jcp.run(jb)
+        assert cp._last_routes == jcp._last_routes
 
 
 def test_entry_points_run_on_cuda_unless_told_otherwise():

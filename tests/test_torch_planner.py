@@ -84,3 +84,55 @@ def test_interop_round_trip():
     out = interop.columns(b["S"])
     np.testing.assert_array_equal(out["a"], np.arange(5))
     np.testing.assert_array_equal(out["b"], np.linspace(0.0, 1.0, 5))
+
+
+# ---------------------------------------------------------------------------
+# Long unary flows: the group search keeps the attribute set
+# ---------------------------------------------------------------------------
+def _first_b(g, out):
+    out.emit(g.keys().set("fB", g.first_of("B")))
+
+
+def _add_x(i):
+    def udf(ir, out):
+        a = ir.get("A")
+        out.emit(ir.copy().set(f"X{i}", a * 2), where=a % 3 == 0)
+    return udf
+
+
+def _projecting_reduce_under_maps(pkg):
+    """Source I(A, B, C, D) -> a Reduce on A that projects to (A, fB) with
+    the non-decomposable `first_of` -> six Maps each adding X<i>: 7
+    operators, so `optimize` takes the group search, and no splittable
+    Reduce sends it to the closure instead."""
+    node = pkg.F.source("I", pkg.Schema.of(A=np.int64, B=np.int64,
+                                           C=np.int64, D=np.int64),
+                        num_records=600)
+    node = pkg.F.reduce_(node, ["A"], _first_b, name="red",
+                         hints=pkg.Hints(distinct_keys=20))
+    for i in range(6):
+        node = pkg.F.map_(node, _add_x(i), name=f"add_X{i}")
+    return node
+
+
+def test_group_search_keeps_the_attribute_set():
+    from repro_torch.core.enumeration import (enum_alternatives_alg1,
+                                              enumerate_plans)
+
+    troot = _projecting_reduce_under_maps(TORCH)
+    jroot = _projecting_reduce_under_maps(JAX)
+    rng = np.random.default_rng(7)
+    d = {"I": {f: rng.integers(0, 20, 600) for f in "ABCD"}}
+    res = toptimize(troot)
+    closure = enumerate_plans(troot, split_reduces=False)
+    assert res.num_plans == len(closure) == 720
+    assert len(enum_alternatives_alg1(troot)) == 720
+    eager = columns_of(TE.execute(troot, bind(TORCH, d)))
+    assert set(eager) == {"A", "fB"} | {f"X{i}" for i in range(6)}
+    assert_same_rows(columns_of(TE.execute(res.best.flow, bind(TORCH, d))),
+                     eager, atol=0)
+    # the reference's closure search (prune=False) picks the same plan;
+    # its group search (prune=True) still takes the faulty path, so the
+    # two packages differ there on purpose
+    ref = joptimize(jroot, prune=False)
+    assert res.best.flow.canonical() == ref.best.flow.canonical()

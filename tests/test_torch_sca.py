@@ -269,7 +269,8 @@ def test_port_imports_no_jax():
     # ... and leaves torch's default dtype as it found it
     code = ("import sys, torch; import repro_torch, repro_torch.interop, "
             "repro_torch.configs.flows, repro_torch.core.pipeline, "
-            "repro_torch.kernels.ops, repro_torch.models.model, "
+            "repro_torch.kernels.ops, repro_torch.kernels.megakernel, "
+            "repro_torch.models.model, "
             "repro_torch.serve.engine, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
