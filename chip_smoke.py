@@ -2,22 +2,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through the hand-written CUDA kernels
+Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
 optimize -> compile(use_kernels=True) -> CompiledPlan.run / run_device — for
 the paper's four evaluation flows at serving scale, on the default
 megakernel route and on the composed route, every result checked against
 the port's eager numpy executor; and token serving — Engine ->
-Model.prefill / decode_step — for qwen3-0.6b at full width and depth with
-the flash-attention kernel.  Phases, one or more lines each:
+Model.prefill / decode_step — at full width and depth for three models:
+qwen3-0.6b with the flash-attention kernel, rwkv6-3b with the rwkv6_scan
+kernel and recurrentgemma-2b with the linear_scan kernel.  Phases, one or
+more lines each:
 
   device   the card's name and power limit (nvidia-smi), first line
-  build    the five kernels built from the checkout with nvcc (one nvcc
+  build    the seven kernels built from the checkout with nvcc (one nvcc
            per source, in parallel), ptxas lines
   kernels  each kernel against its plain torch version on the card; the
            span kernels bitwise on every slot at 8,388,608 rows; flash
            attention at the reference test's seven shapes and the served
-           shapes, timed against the plain version and SDPA, with a bound
+           shapes, timed against the plain version and SDPA, with a bound;
+           rwkv6_scan and linear_scan at the reference test's shapes and
+           the served shapes, with and without a state, timed against the
+           plain version, with a bound
   flows    q15 (6M lineitem rows), q7 (1M), clickstream (16M), textmining
            (1M), each through run and through bind_device + run_device on
            the megakernel route (the default) and the composed route
@@ -39,6 +44,18 @@ the flash-attention kernel.  Phases, one or more lines each:
            logits against the same weights with plain attention; then a
            timed run (tokens/s, prefill ms per chunk, decode ms per step)
            and a profiled decode step (device busy time, idle share)
+  serve_rwkv6-3b, serve_recurrentgemma-2b
+           the same 8 requests through rwkv6-3b (32 layers, d_model 2560,
+           40 heads x 64) and recurrentgemma-2b (26 layers, RG-LRU width
+           2560, local window 2048), f32 weights, bf16 activations,
+           Model(use_kernel=True): every rwkv6_scan / linear_scan call held
+           against the plain recurrence on its inputs, the launches counted
+           (one per recurrent layer and prefill), the timed run; the
+           prefill's last-token logits against use_kernel=False on the same
+           weights, within LOGIT_TOL with float32 activations and, with the
+           served bf16 activations, no farther from the float32 logits
+           than twice the plain path; the profiled decode step as for
+           qwen3-0.6b
 
 The line before the last is a JSON object of the kernels' numbers, the last
 `{"ok": true, "device": {...}}`.  Any failed phase, a missing CUDA device or
@@ -83,6 +100,10 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/megakernel.py:313"),
     "span_segment": ("src/repro_torch/csrc/span_segment.cu",
                      "src/repro/kernels/megakernel.py:313"),
+    "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:69"),
+    "linear_scan": ("src/repro_torch/csrc/linear_scan.cu",
+                    "src/repro/kernels/linear_scan.py:57"),
 }
 # the data-flow path's kernels
 DATA_KERNELS = ("sorted_probe", "segmented_scan", "span_compact",
@@ -90,7 +111,8 @@ DATA_KERNELS = ("sorted_probe", "segmented_scan", "span_compact",
 SPAN_KERNELS = ("span_compact", "span_segment")
 REPO_KERNELS = ("probe_kernel", "tile_reduce", "tile_carries", "tile_apply",
                 "compact_count", "compact_scatter", "block_offsets",
-                "segment_count", "segment_write", "flash_bf16", "flash_f32")
+                "segment_count", "segment_write", "flash_bf16", "flash_f32",
+                "wkv6_kernel", "linear_scan_kernel")
 # the routes the default span budget gives at these sizes
 EXPECTED_ROUTES = {"q15": (("mega", 0, 4),), "q7": (("mega", 0, 7),),
                    "clickstream": (("mega", 0, 4),), "textmining": None}
@@ -109,6 +131,20 @@ ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # both run 28 bf16 layers and round attention outputs differently (the
 # kernel feeds P to P.V in bf16), so they agree to bf16 drift, not bits
 LOGIT_TOL = 5e-2
+# token serving through the recurrent families, same requests and engine
+RECURRENT_ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
+SCAN_KERNEL = {"rwkv6": "rwkv6_scan", "hybrid": "linear_scan"}
+# rwkv6_scan against the sequential plain recurrence on the same inputs:
+# float32 outputs to tests/test_kernels.py's 3e-4 (summation order only);
+# bf16 outputs are both rounded from float32 sums of another order, one
+# bf16 step apart at most, held as ATTN_TOL holds bf16 attention
+RWKV_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-4}
+RWKV_STATE_TOL = 3e-4   # the float32 final state: summation order only
+LSCAN_TOL = 1e-4        # linear_scan, float32: tests/test_kernels.py's
+# (B, H, T, Dk, Dv) and (G, T, D): tests/test_kernels.py:76-79 and :104
+RWKV_TEST_SHAPES = [(1, 2, 64, 16, 16), (2, 1, 128, 32, 64),
+                    (1, 1, 256, 64, 64)]
+LSCAN_TEST_SHAPES = [(2, 64, 8), (1, 500, 16), (3, 256, 128)]
 # (B, Hq, Hkv, T, S, D), causal, window, dtype: tests/test_kernels.py:55-63
 ATTN_TEST_SHAPES = [
     ((1, 4, 2, 128, 128, 64), True, None, torch.float32),
@@ -220,6 +256,7 @@ def phase_kernels(res: dict, dev) -> None:
     torch.cuda.empty_cache()
     _span_kernel_checks(res, dev)
     _flash_kernel_checks(res, dev)
+    _scan_kernel_checks(res, dev)
 
 
 def serve_prompts(vocab: int) -> list:
@@ -264,9 +301,8 @@ def _sdpa(q, k, v, causal, window):
                                           enable_gqa=gqa)
 
 
-def _attn_close(got, want, dtype) -> tuple:
-    """(ok, max |got - want|) under ATTN_TOL as allclose reads it."""
-    tol = ATTN_TOL[dtype]
+def _close(got, want, tol) -> tuple:
+    """(ok, max |got - want|) under atol = rtol = tol, as allclose reads it."""
     diff = (got.float() - want.float()).abs()
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     return ok, float(diff.max()) if diff.numel() else 0.0
@@ -295,8 +331,8 @@ def _flash_kernel_checks(res: dict, dev) -> None:
         want = ref.attention(q, k, v, causal=causal, window=window)
         lib_out = _sdpa(q, k, v, causal, window)
         torch.cuda.synchronize()
-        ok, err = _attn_close(got, want, dt)
-        lib_ok, lib_err = _attn_close(lib_out, want, dt)
+        ok, err = _close(got, want, ATTN_TOL[dt])
+        lib_ok, lib_err = _close(lib_out, want, ATTN_TOL[dt])
         name = f"flash_attention {shape} causal={causal} window={window} " \
             f"{str(dt)[6:]}"
         if not ok:
@@ -322,6 +358,140 @@ def _flash_kernel_checks(res: dict, dev) -> None:
             f"({bound[1]})")
         del q, k, v, got, want, lib_out
     res["flash_shapes"] = rows
+    torch.cuda.empty_cache()
+
+
+def _rwkv_bound(r, k, v, w, u, state, return_state) -> tuple:
+    """Bytes: r, k, v, w, u and the state read once, the output and the
+    state written once; operations: 5·Dk·Dv a step and head (an FMA per
+    state element for the output, a multiply and an FMA for the update),
+    at the CUDA-core rate (the math is float32)."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    bytes_ = sum(x.numel() * x.element_size() for x in (r, k, v, w, u))
+    bytes_ += b * h * t * dv * r.element_size()
+    bytes_ += (state is not None) * b * h * dk * dv * 4
+    bytes_ += bool(return_state) * b * h * dk * dv * 4
+    return bytes_, 5 * b * h * t * dk * dv
+
+
+def _lscan_bound(a, b, h0) -> tuple:
+    """Bytes: a, b (and h0) read once, h written once; 2 flops (an FMA) a
+    step and channel."""
+    bytes_ = 3 * a.numel() * 4 + (0 if h0 is None else h0.numel() * 4)
+    return bytes_, 2 * a.numel()
+
+
+def _rwkv_inputs(g, dev, b, h, t, dk, dv, dt, w_dt, u_dt):
+    r, k = (torch.randn((b, h, t, dk), generator=g).to(dev, dt)
+            for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=g).to(dev, dt)
+    w = (0.3 + 0.695 * torch.rand((b, h, t, dk), generator=g)).to(dev, w_dt)
+    u = torch.randn((h, dk), generator=g).to(dev, u_dt)
+    return r, k, v, w, u
+
+
+def _rwkv_check(name, ops, ref, args, state, return_state) -> float:
+    """One rwkv6_scan call against the sequential plain recurrence."""
+    got = ops.rwkv6(*args, state=state, return_state=return_state)
+    want = ref.rwkv6(*args, state=state, return_state=return_state)
+    torch.cuda.synchronize()
+    if not return_state:
+        got, want = (got,), (want,)
+    ok, err = _close(got[0], want[0], RWKV_TOL[args[0].dtype])
+    if return_state:
+        ok_s, err_s = _close(got[1], want[1], RWKV_STATE_TOL)
+        ok, err = ok and ok_s, max(err, err_s)
+    if not ok:
+        raise AssertionError(f"{name}: max abs err {err:g} over the "
+                             f"tolerance (output "
+                             f"{RWKV_TOL[args[0].dtype]:g}, state "
+                             f"{RWKV_STATE_TOL:g})")
+    return err
+
+
+def _scan_kernel_checks(res: dict, dev) -> None:
+    """rwkv6_scan and linear_scan against their plain versions at the
+    reference test's shapes (float32, with and without a state or h0) and
+    at the shapes the two serve phases give them: rwkv6-3b's 40 heads of 64
+    and recurrentgemma-2b's 2560 channels over the prompt chunks' lengths,
+    bf16 r/k/v with float32 w/u and a state in and out (prefill), bf16 w/u
+    and no state (forward); linear_scan with and without h0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator().manual_seed(4)
+    for b, h, t, dk, dv in RWKV_TEST_SHAPES:
+        args = _rwkv_inputs(g, dev, b, h, t, dk, dv, torch.float32,
+                            torch.float32, torch.float32)
+        for with_state in (False, True):
+            st = (torch.randn((b, h, dk, dv), generator=g) * 0.1).to(dev) \
+                if with_state else None
+            err = _rwkv_check(f"rwkv6_scan {(b, h, t, dk, dv)}", ops, ref,
+                              args, st, with_state)
+            say("kernels", f"rwkv6_scan {(b, h, t, dk, dv)} float32 "
+                f"state={with_state}: max abs err {err:.3g} (atol=rtol="
+                f"{RWKV_TOL[torch.float32]:g})")
+    for gsz, t, d in LSCAN_TEST_SHAPES:
+        a = (0.2 + 0.79 * torch.rand((gsz, t, d), generator=g)).to(dev)
+        bb = torch.randn((gsz, t, d), generator=g).to(dev)
+        for h0 in (None, torch.randn((gsz, d), generator=g).to(dev)):
+            ok, err = _close(ops.linear_scan(a, bb, h0=h0),
+                             ref.linear_scan(a, bb, h0=h0), LSCAN_TOL)
+            if not ok:
+                raise AssertionError(f"linear_scan {(gsz, t, d)}: max abs "
+                                     f"err {err:g} over {LSCAN_TOL:g}")
+            say("kernels", f"linear_scan {(gsz, t, d)} h0={h0 is not None}: "
+                f"max abs err {err:.3g} (atol=rtol={LSCAN_TOL:g})")
+
+    lens = [len(p) for p in serve_prompts(get_config("rwkv6-3b").vocab)]
+    chunks = [max(lens[i:i + SERVE_SLOTS])
+              for i in range(0, len(lens), SERVE_SLOTS)]
+    rows = []
+    cfg = get_config("rwkv6-3b")
+    h, dk = cfg.rwkv_n_heads, cfg.rwkv_head_dim
+    for t in chunks:
+        for with_state in (True, False):
+            w_dt = torch.float32 if with_state else torch.bfloat16
+            args = _rwkv_inputs(g, dev, SERVE_SLOTS, h, t, dk, dk,
+                                torch.bfloat16, w_dt, w_dt)
+            st = (torch.randn((SERVE_SLOTS, h, dk, dk), generator=g)
+                  * 0.1).to(dev) if with_state else None
+            name = (f"rwkv6_scan {(SERVE_SLOTS, h, t, dk, dk)} bf16 r/k/v, "
+                    f"{str(w_dt)[6:]} w/u, state={with_state}")
+            err = _rwkv_check(name, ops, ref, args, st, with_state)
+            ms = cuda_ms(lambda: ops.rwkv6(*args, state=st,
+                                           return_state=with_state), 10)
+            plain = cuda_ms(lambda: ref.rwkv6(*args, state=st,
+                                              return_state=with_state), 1, 1)
+            bound = _bound(*_rwkv_bound(*args, st, with_state))
+            rows.append({"kernel": "rwkv6_scan", "name": name,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
+            say("kernels", f"{name}: max abs err {err:.3g}; ms={ms:.4f} "
+                f"plain_ms={plain:.3f} bound_ms={bound[0]:.4f} ({bound[1]})")
+            del args, st
+    d = get_config("recurrentgemma-2b").rglru_d_state
+    for t in chunks:
+        a = (0.2 + 0.79 * torch.rand((SERVE_SLOTS, t, d), generator=g)).to(dev)
+        bb = torch.randn((SERVE_SLOTS, t, d), generator=g).to(dev)
+        for h0 in (torch.randn((SERVE_SLOTS, d), generator=g).to(dev), None):
+            name = f"linear_scan {(SERVE_SLOTS, t, d)} h0={h0 is not None}"
+            ok, err = _close(ops.linear_scan(a, bb, h0=h0),
+                             ref.linear_scan(a, bb, h0=h0), LSCAN_TOL)
+            if not ok:
+                raise AssertionError(f"{name}: max abs err {err:g} over "
+                                     f"{LSCAN_TOL:g}")
+            ms = cuda_ms(lambda: ops.linear_scan(a, bb, h0=h0), 20)
+            plain = cuda_ms(lambda: ref.linear_scan(a, bb, h0=h0), 5)
+            bound = _bound(*_lscan_bound(a, bb, h0))
+            rows.append({"kernel": "linear_scan", "name": name,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
+            say("kernels", f"{name}: max abs err {err:.3g}; ms={ms:.4f} "
+                f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
+        del a, bb
+    res["scan_shapes"] = rows
     torch.cuda.empty_cache()
 
 
@@ -889,7 +1059,7 @@ class AttnChecker:
             got = real(q, k, v, causal=causal, window=window, scale=scale)
             want = ref.attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
-            ok, err = _attn_close(got, want, q.dtype)
+            ok, err = _close(got, want, ATTN_TOL[q.dtype])
             if self.first is None:
                 self.first = (q, k, v, causal, window)
             self.calls.append((tuple(q.shape), tuple(k.shape), err))
@@ -949,13 +1119,97 @@ def _chunk_tokens(prompts) -> torch.Tensor:
     return torch.from_numpy(toks)
 
 
+def _check_requests(reqs, cfg) -> None:
+    for r in reqs:
+        if len(r.out_tokens) != SERVE_NEW or not r.done or not all(
+                0 <= x < cfg.padded_vocab for x in r.out_tokens):
+            raise AssertionError(f"request of {len(r.prompt)} tokens: bad "
+                                 f"output {r.out_tokens}")
+
+
+def _timed_serve(phase: str, engine, model, requests, checked) -> tuple:
+    """A timed run of the requests, no checks: (serve dict, decode ms)."""
+    with StepTimer(model) as tm:
+        t = time.perf_counter()
+        timed = engine.generate(requests())
+        wall = time.perf_counter() - t
+    n_tok = sum(len(r.out_tokens) for r in timed)
+    same = all(a.out_tokens == b.out_tokens for a, b in zip(checked, timed))
+    dec = tm.ms["decode_step"]
+    serve = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+             "prefill_ms": tm.ms["prefill"],
+             "decode_ms_per_step_median": float(np.median(dec)),
+             "decode_ms_per_step_mean": float(np.mean(dec)),
+             "decode_steps": len(dec), "tokens_equal_checked_run": same,
+             "out_tokens_first": timed[0].out_tokens}
+    say(phase, f"timed run: {n_tok} tokens in {wall:.3f}s = "
+        f"{serve['tokens_per_s']:.1f} tokens/s; prefill ms per chunk "
+        f"{[round(x, 2) for x in serve['prefill_ms']]}; decode "
+        f"{serve['decode_ms_per_step_median']:.3f} ms per step median "
+        f"({SERVE_SLOTS} tokens a step, {len(dec)} steps); greedy tokens "
+        f"equal to the checked run's: {same}")
+    return serve, dec
+
+
+def _compare_logits(phase: str, serve: dict, lf, lp, toks, what: str) -> None:
+    """Prefill last-token logits of the kernel path against the plain path
+    on the same weights, within LOGIT_TOL."""
+    diff = (lf - lp).abs()
+    logit_err = float(diff.max())
+    ok = bool((diff <= LOGIT_TOL + LOGIT_TOL * lp.abs()).all())
+    agree = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
+    if not (ok and torch.isfinite(lf).all()):
+        raise AssertionError(f"prefill logits: {what} max abs err "
+                             f"{logit_err:g} over atol=rtol={LOGIT_TOL:g}")
+    serve.update(logit_max_abs_err=logit_err,
+                 logit_max_abs=float(lp.abs().max()), argmax_agree=agree)
+    say(phase, f"prefill last-token logits [{toks.shape[0]}, 1, "
+        f"{lf.shape[-1]}] on the kernel path vs {what}: max abs err "
+        f"{logit_err:.4g} (|logit| up to {serve['logit_max_abs']:.3g}; "
+        f"atol=rtol={LOGIT_TOL:g}); argmax agrees on {agree:.2f} of rows")
+
+
+def _profile_decode(phase: str, serve: dict, model, lf, state, dec) -> None:
+    """One decode step profiled after two unprofiled ones, against the
+    timed run's median step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = lf.argmax(-1)
+    for _ in range(2):
+        out, state = model.decode_step(tok, state)
+        tok = out.argmax(-1)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out, state = model.decode_step(tok, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy, n_kernels, per_name = _device_busy(prof)
+    step_us = float(np.median(dec)) * 1e3
+    if busy > 0:
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        serve["decode_profile"] = {
+            "device_busy_us": busy, "device_kernels": n_kernels,
+            "idle_share": max(0.0, 1 - busy / step_us),
+            "profiled_wall_us": wall_us, "top": top}
+        say(phase, f"decode step: device busy {busy:.0f} us in {n_kernels} "
+            f"device kernels; against the timed run's median step "
+            f"{step_us:.0f} us idle share "
+            f"{serve['decode_profile']['idle_share']:.3f} ("
+            f"{step_us / n_kernels:.1f} us of wall per device kernel; "
+            f"profiled wall {wall_us:.0f} us)")
+        for k, v in top:
+            say(phase, f"  {v:10.1f} us  {k[:90]}")
+    else:
+        say(phase, "the profiler recorded no device kernels: decode busy "
+            "time and idle share not measured")
+
+
 def phase_serve(res: dict, dev) -> dict:
     """Token serving, the model plane's main path: qwen3-0.6b at full width
     and depth through Engine -> prefill / decode_step with the flash
     kernel.  Launch counts are set to zero just before the checked run and
     read just after it."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.models import make_model
@@ -994,11 +1248,7 @@ def phase_serve(res: dict, dev) -> dict:
                              f"{launches['flash_attention']} times, expected "
                              f"{n_chunks * cfg.n_layers} (one per prefill "
                              f"layer): {launches}")
-    for r in reqs:
-        if len(r.out_tokens) != SERVE_NEW or not r.done or not all(
-                0 <= x < cfg.padded_vocab for x in r.out_tokens):
-            raise AssertionError(f"request of {len(r.prompt)} tokens: bad "
-                                 f"output {r.out_tokens}")
+    _check_requests(reqs, cfg)
     shapes = sorted({c[0] for c in chk.calls})
     say("serve", f"checked run: {SERVE_REQUESTS} requests, prompts "
         f"{[len(p) for p in prompts]}, {SERVE_NEW} new tokens each; "
@@ -1006,26 +1256,7 @@ def phase_serve(res: dict, dev) -> dict:
         f"atol=rtol={ATTN_TOL[torch.bfloat16]:g} of the plain attention "
         f"(max abs err {chk.max_err:.4g}); launches {launches}")
 
-    # timed run, no checks
-    with StepTimer(model) as tm:
-        t = time.perf_counter()
-        timed = engine.generate(requests())
-        wall = time.perf_counter() - t
-    n_tok = sum(len(r.out_tokens) for r in timed)
-    same = all(a.out_tokens == b.out_tokens for a, b in zip(reqs, timed))
-    dec = tm.ms["decode_step"]
-    serve = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-             "prefill_ms": tm.ms["prefill"],
-             "decode_ms_per_step_median": float(np.median(dec)),
-             "decode_ms_per_step_mean": float(np.mean(dec)),
-             "decode_steps": len(dec), "tokens_equal_checked_run": same,
-             "out_tokens_first": timed[0].out_tokens}
-    say("serve", f"timed run: {n_tok} tokens in {wall:.3f}s = "
-        f"{serve['tokens_per_s']:.1f} tokens/s; prefill ms per chunk "
-        f"{[round(x, 2) for x in serve['prefill_ms']]}; decode "
-        f"{serve['decode_ms_per_step_median']:.3f} ms per step median "
-        f"({SERVE_SLOTS} tokens a step, {len(dec)} steps); greedy tokens "
-        f"equal to the checked run's: {same}")
+    serve, dec = _timed_serve("serve", engine, model, requests, reqs)
 
     # prefill logits: kernel path against plain attention on the same weights
     plain = make_model(cfg.with_(attn_impl="xla"), dev).load_params(
@@ -1037,54 +1268,8 @@ def phase_serve(res: dict, dev) -> dict:
                           plain.init_decode_state(toks.shape[0], SERVE_MAX_SEQ))
     torch.cuda.synchronize()
     del plain
-    diff = (lf - lp).abs()
-    logit_err = float(diff.max())
-    ok = bool((diff <= LOGIT_TOL + LOGIT_TOL * lp.abs()).all())
-    agree = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
-    if not (ok and torch.isfinite(lf).all()):
-        raise AssertionError(f"prefill logits: flash vs plain max abs err "
-                             f"{logit_err:g} over atol=rtol={LOGIT_TOL:g}")
-    serve.update(logit_max_abs_err=logit_err, logit_max_abs=float(lp.abs().max()),
-                 argmax_agree=agree)
-    say("serve", f"prefill last-token logits [{toks.shape[0]}, 1, "
-        f"{lf.shape[-1]}] on the kernel path vs plain attention: max abs err "
-        f"{logit_err:.4g} (|logit| up to {serve['logit_max_abs']:.3g}; "
-        f"atol=rtol={LOGIT_TOL:g}); argmax agrees on {agree:.2f} of rows")
-
-    # one decode step profiled after two unprofiled ones
-    tok = lf.argmax(-1)
-    step_ms = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out, state = model.decode_step(tok, state)
-        tok = out.argmax(-1)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        out, state = model.decode_step(tok, state)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    busy, n_kernels, per_name = _device_busy(prof)
-    step_us = float(np.median(dec)) * 1e3
-    if busy > 0:
-        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
-        serve["decode_profile"] = {
-            "device_busy_us": busy, "device_kernels": n_kernels,
-            "idle_share": max(0.0, 1 - busy / step_us),
-            "profiled_wall_us": wall_us, "top": top}
-        say("serve", f"decode step: device busy {busy:.0f} us in {n_kernels} "
-            f"device kernels; against the timed run's median step "
-            f"{step_us:.0f} us idle share "
-            f"{serve['decode_profile']['idle_share']:.3f} ("
-            f"{step_us / n_kernels:.1f} us of wall per device kernel; "
-            f"profiled wall {wall_us:.0f} us)")
-        for k, v in top:
-            say("serve", f"  {v:10.1f} us  {k[:90]}")
-    else:
-        say("serve", "the profiler recorded no device kernels: decode busy "
-            "time and idle share not measured")
+    _compare_logits("serve", serve, lf, lp, toks, "plain attention")
+    _profile_decode("serve", serve, model, lf, state, dec)
     res["serve"] = serve
 
     # the kernel's numbers at the main path's first call
@@ -1106,6 +1291,200 @@ def phase_serve(res: dict, dev) -> dict:
         f"plain_ms={entry['plain_ms']:.4f} library_ms={entry['library_ms']:.4f} "
         f"(SDPA) bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); "
         f"max_abs_err over the path's calls {entry['max_abs_err']:g}")
+    return entry
+
+
+class ScanChecker:
+    """Holds every `ops.rwkv6` and `ops.linear_scan` call the models make
+    against the plain recurrence on the same inputs (the sequential
+    `ref.rwkv6` with the state; `ref.linear_scan` with h0), and keeps the
+    first call's inputs for timing."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self.calls, self.failures, self.first = [], [], {}
+        self.max_err = {"rwkv6_scan": 0.0, "linear_scan": 0.0}
+        self._real = real = {"rwkv6": ops.rwkv6,
+                             "linear_scan": ops.linear_scan}
+
+        def note(name, shape, ok, err, inputs):
+            self.first.setdefault(name, inputs)
+            self.calls.append((name, shape, err))
+            self.max_err[name] = max(self.max_err[name], err)
+            if not ok:
+                self.failures.append((name, shape, err))
+
+        def rwkv6(r, k, v, w, u, state=None, return_state=False):
+            got = real["rwkv6"](r, k, v, w, u, state=state,
+                                return_state=return_state)
+            want = ref.rwkv6(r, k, v, w, u, state=state,
+                             return_state=return_state)
+            pairs = zip(got, want) if return_state else [(got, want)]
+            tols = [RWKV_TOL[r.dtype], RWKV_STATE_TOL]
+            checks = [_close(a, b, tol) for (a, b), tol in zip(pairs, tols)]
+            note("rwkv6_scan", tuple(r.shape), all(c[0] for c in checks),
+                 max(c[1] for c in checks),
+                 ((r, k, v, w, u), state, return_state))
+            return got
+
+        def linear_scan(a, b, h0=None):
+            got = real["linear_scan"](a, b, h0=h0)
+            ok, err = _close(got, ref.linear_scan(a, b, h0=h0), LSCAN_TOL)
+            note("linear_scan", tuple(a.shape), ok, err, (a, b, h0))
+            return got
+
+        ops.rwkv6, ops.linear_scan = rwkv6, linear_scan
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.rwkv6 = self._real["rwkv6"]
+        ops.linear_scan = self._real["linear_scan"]
+        return False
+
+
+def phase_serve_recurrent(res: dict, dev, arch: str) -> dict:
+    """Token serving through a recurrent family at full width and depth,
+    `Model(use_kernel=True)`: rwkv6-3b (rwkv6_scan in every prefill layer)
+    or recurrentgemma-2b (linear_scan in every RG-LRU prefill layer).
+    Launch counts are set to zero just before the checked run and read just
+    after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import make_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serve.engine import Engine, Request
+
+    phase = f"serve_{arch}"
+    cfg = get_config(arch)
+    kernel = SCAN_KERNEL[cfg.family]
+    n_rec = sum(k not in ("attn", "dense") for k in layer_kinds(cfg))
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    model = make_model(cfg, dev, use_kernel=True).init(gen)
+    torch.cuda.synchronize()
+    if cfg.family == "rwkv6":
+        shape = (f"{cfg.rwkv_n_heads} heads x {cfg.rwkv_head_dim}, d_ff "
+                 f"{cfg.d_ff}")
+    else:
+        shape = (f"pattern {cfg.block_pattern}, RG-LRU width "
+                 f"{cfg.rglru_d_state}, local window {cfg.local_window}, "
+                 f"heads {cfg.n_heads}/{cfg.kv_heads} x {cfg.head_dim}")
+    say(phase, f"{cfg.name}: {cfg.n_layers} layers ({n_rec} recurrent), "
+        f"d_model {cfg.d_model}, {shape}, vocab {cfg.vocab} (padded "
+        f"{cfg.padded_vocab}), {model.param_count():,} "
+        f"{str(cfg.p_dtype)[6:]} parameters, {str(cfg.act_dtype)[6:]} "
+        f"activations, use_kernel=True; init on the card "
+        f"{time.perf_counter() - t:.1f}s")
+    prompts = serve_prompts(cfg.vocab)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=SERVE_NEW) for p in prompts]
+
+    engine = Engine(model, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                    seed=SERVE_SEED)
+    # the main path, every kernel call checked
+    with ScanChecker() as chk:
+        ops.reset_launches()
+        reqs = engine.generate(requests())
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+    n_chunks = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    if chk.failures:
+        raise AssertionError(f"{kernel} calls disagree with the plain "
+                             f"recurrence: {chk.failures}")
+    if launches[kernel] != n_chunks * n_rec or any(
+            n for k, n in launches.items() if k != kernel):
+        raise AssertionError(f"{kernel} launched {launches[kernel]} times, "
+                             f"expected {n_chunks * n_rec} (one per "
+                             f"recurrent prefill layer) and no other "
+                             f"kernel: {launches}")
+    _check_requests(reqs, cfg)
+    shapes = sorted({c[1] for c in chk.calls})
+    tol = (f"output atol=rtol={RWKV_TOL[torch.bfloat16]:g}, state "
+           f"{RWKV_STATE_TOL:g}" if kernel == "rwkv6_scan"
+           else f"atol=rtol={LSCAN_TOL:g}")
+    say(phase, f"checked run: {SERVE_REQUESTS} requests, prompts "
+        f"{[len(p) for p in prompts]}, {SERVE_NEW} new tokens each; "
+        f"{len(chk.calls)} {kernel} calls at shapes {shapes}, each within "
+        f"{tol} of the plain recurrence (max abs err "
+        f"{chk.max_err[kernel]:.4g}); launches {launches}")
+
+    serve, dec = _timed_serve(phase, engine, model, requests, reqs)
+
+    # prefill logits: kernel path against use_kernel=False on the same
+    # weights.  bf16 activations round at every layer, so a one-ulp flip in
+    # a recurrence's output (summation order) grows over the depth to the
+    # bf16 path's own noise: the two paths are held (1) within LOGIT_TOL
+    # with float32 activations, where nothing rounds to bf16, and (2) with
+    # the served bf16 activations, the kernel path no farther from the
+    # float32 logits than twice the plain path is
+    toks = _chunk_tokens(prompts).to(dev)
+    b = toks.shape[0]
+
+    def prefill(m, use_kernel):
+        m.use_kernel = use_kernel
+        out = m.prefill({"tokens": toks}, m.init_decode_state(b, SERVE_MAX_SEQ))
+        m.use_kernel = True
+        return out
+
+    lf, state = prefill(model, True)
+    lp, _ = prefill(model, False)
+    m32 = make_model(cfg.with_(dtype="float32"), dev).load_params(
+        model.state_dict())
+    lf32, _ = prefill(m32, True)
+    lp32, _ = prefill(m32, False)
+    torch.cuda.synchronize()
+    del m32
+    _compare_logits(phase, serve, lf32, lp32, toks,
+                    "use_kernel=False, both with float32 activations")
+    err_k = float((lf - lp32).abs().max())
+    err_p = float((lp - lp32).abs().max())
+    serve.update(bf16_logit_max_abs_err=float((lf - lp).abs().max()),
+                 bf16_argmax_agree=float((lf.argmax(-1) == lp.argmax(-1))
+                                         .float().mean()),
+                 bf16_kernel_vs_f32=err_k, bf16_plain_vs_f32=err_p)
+    say(phase, f"prefill last-token logits with bf16 activations: kernel "
+        f"path vs use_kernel=False max abs err "
+        f"{serve['bf16_logit_max_abs_err']:.4g} (argmax agrees on "
+        f"{serve['bf16_argmax_agree']:.2f} of rows); against the float32 "
+        f"activations' plain logits the kernel path is {err_k:.4g} off, "
+        f"the plain path {err_p:.4g}")
+    if not (torch.isfinite(lf).all() and err_k <= 2 * err_p):
+        raise AssertionError(f"bf16 prefill logits: the kernel path is "
+                             f"{err_k:g} from the float32 logits, more than "
+                             f"twice the plain path's {err_p:g}")
+    del lp, lf32, lp32
+    _profile_decode(phase, serve, model, lf, state, dec)
+    res[phase] = serve
+
+    # the kernel's numbers at the main path's first call
+    if kernel == "rwkv6_scan":
+        args, st, rs = chk.first[kernel]
+        bytes_, opers = _rwkv_bound(*args, st, rs)
+        ms = cuda_ms(lambda: ops.rwkv6(*args, state=st, return_state=rs), 20)
+        plain = cuda_ms(lambda: ref.rwkv6(*args, state=st, return_state=rs),
+                        2, 1)
+        what = (f"r/k/w {list(args[0].shape)}, v {list(args[2].shape)}, "
+                f"{str(args[0].dtype)[6:]} r/k/v, {str(args[3].dtype)[6:]} "
+                f"w, state in and out")
+    else:
+        a, b, h0 = chk.first[kernel]
+        bytes_, opers = _lscan_bound(a, b, h0)
+        ms = cuda_ms(lambda: ops.linear_scan(a, b, h0=h0), 20)
+        plain = cuda_ms(lambda: ref.linear_scan(a, b, h0=h0), 5)
+        what = (f"a/b {list(a.shape)} float32, "
+                f"{'with' if h0 is not None else 'no'} h0")
+    entry = _entry(kernel, launches, chk.max_err[kernel], ms, plain, bytes_,
+                   opers, None, what)
+    say(phase, f"{kernel} at the first prefill's shape ({entry.pop('shape')}):"
+        f" ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
+        f"library_ms=null (no single PyTorch call computes the recurrence) "
+        f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); "
+        f"max_abs_err over the path's calls {entry['max_abs_err']:g}")
+    del chk, model, engine, state, lf
     return entry
 
 
@@ -1140,6 +1519,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "serve"
         kernels.append(phase_serve(res, dev))
+        for arch in RECURRENT_ARCHS:
+            torch.cuda.empty_cache()
+            phase = f"serve_{arch}"
+            kernels.append(phase_serve_recurrent(res, dev, arch))
     except Exception:
         say(phase, "FAILED\n" + traceback.format_exc())
         return 1

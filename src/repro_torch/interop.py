@@ -42,11 +42,16 @@ def columns(result) -> dict[str, np.ndarray]:
 
 
 def model_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
-    """The reference's parameter pytree (nested dicts of numpy arrays, each
-    leaf under "layers" stacked on a leading axis of `cfg.n_layers`) ->
-    `{dotted path: tensor}` for `Model.load_params`: "layers" is unstacked
-    into `layers.{i}.…`, every other leaf keeps its path."""
-    if cfg.family != "dense":
+    """The reference's parameter pytree (nested dicts of numpy arrays) ->
+    `{dotted path: tensor}` for `Model.load_params`.  Dense and rwkv6 trees
+    stack each leaf under "layers" on a leading axis of `cfg.n_layers`,
+    unstacked here into `layers.{i}.…`.  The hybrid tree has "super", one
+    dict per kind of `block_pattern` with each leaf stacked on the number
+    of super-blocks, and "tail", a list of unstacked dicts: super-block s,
+    kind j becomes layer `s·len(block_pattern) + j` and tail item i the
+    layer after all super-blocks' plus i.  Every other leaf keeps its
+    path."""
+    if cfg.family not in ("dense", "rwkv6", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1 "
             f"item 9)")
@@ -64,6 +69,15 @@ def model_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
         if k == "layers":
             for i in range(cfg.n_layers):
                 walk(f"layers.{i}.", v, i)
+        elif k == "super":
+            width = len(cfg.block_pattern)
+            for j, kind in enumerate(v):
+                for s in range(cfg.n_layers // width):
+                    walk(f"layers.{s * width + j}.", kind, s)
+        elif k == "tail":
+            first = cfg.n_layers - len(v)
+            for i, sub in enumerate(v):
+                walk(f"layers.{first + i}.", sub)
         else:
             walk(f"{k}.", v)
     return out

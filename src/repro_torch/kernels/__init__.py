@@ -15,9 +15,14 @@ Model plane:
   flash_attention — causal / sliding-window GQA attention with an online
                    softmax, every prefill layer under attn_impl="flash"
                    (`csrc/flash_attention.cu`)
+  rwkv6_scan     — the RWKV-6 WKV recurrence, with an optional state in and
+                   out, every rwkv6 prefill layer under use_kernel=True
+                   (`csrc/rwkv6_scan.cu`)
+  linear_scan    — the RG-LRU's diagonal recurrence h_t = a_t h_{t-1} + b_t
+                   with an optional h0, every RG-LRU prefill layer under
+                   use_kernel=True (`csrc/linear_scan.cu`)
 
 `megakernel.py` plans and runs the fused spans, `ops.py` holds the wrappers
 and launch counts, `ref.py` the plain torch versions, `build.py` the nvcc
-build.  The RWKV-6 and linear-scan kernels of `repro` are not ported yet
-(ROADMAP.md, Queue 2).
+build.
 """

@@ -32,7 +32,9 @@ SOURCES = {"sorted_probe": "sorted_probe.cu",
            "segmented_scan": "segmented_scan.cu",
            "flash_attention": "flash_attention.cu",
            "span_compact": "span_compact.cu",
-           "span_segment": "span_segment.cu"}
+           "span_segment": "span_segment.cu",
+           "rwkv6_scan": "rwkv6_scan.cu",
+           "linear_scan": "linear_scan.cu"}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -141,6 +143,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         scratch = lib.repro_span_segment_scratch
         scratch.argtypes = [ll]
         scratch.restype = ll
+    elif name == "rwkv6_scan":
+        fn = lib.repro_rwkv6_scan
+        fn.argtypes = [i] * 4 + [p] * 8 + [i] * 4 + [p]
+        fn.restype = i
+    elif name == "linear_scan":
+        fn = lib.repro_linear_scan
+        fn.argtypes = [p, p, p, p, ll, ll, i, p]
+        fn.restype = i
     else:  # pragma: no cover - SOURCES and this table move together
         raise KeyError(name)
 

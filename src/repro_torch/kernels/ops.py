@@ -2,9 +2,9 @@
 counts.
 
 Port of the `segmented_scan`, `segment_reduce`, `KernelSegmentOps`,
-`sorted_probe` and `flash_attention` entries of `repro.kernels.ops`, plus
-`span_compact` and `span_segment`, the megakernel span's boundary kernels
-(`kernels.megakernel`).  A wrapper given CPU tensors
+`sorted_probe`, `flash_attention`, `rwkv6` and `linear_scan` entries of
+`repro.kernels.ops`, plus `span_compact` and `span_segment`, the megakernel
+span's boundary kernels (`kernels.megakernel`).  A wrapper given CPU tensors
 runs the kernel's plain torch version (`kernels.ref`); given CUDA tensors it
 launches the hand-written CUDA kernel (`repro_torch/csrc/`, built on first use
 by `kernels.build`) on the current stream, or raises — there is no quiet
@@ -13,7 +13,8 @@ run can show that its main path went through the kernels.
 
 Unlike the reference wrappers, data-plane values keep their native dtype:
 no float32 cast (`repro/kernels/ops.py:51,78`), so integer sums are exact.
-The attention kernel masks ragged tails, so no block size is chosen here.
+The attention and recurrence kernels take any length (ragged tails are
+masked or looped over), so no block size is chosen and nothing is padded.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from . import build, ref
 
 # CUDA launches per kernel since the last `reset_launches()`
 LAUNCHES = {"sorted_probe": 0, "segmented_scan": 0, "flash_attention": 0,
-            "span_compact": 0, "span_segment": 0}
+            "span_compact": 0, "span_segment": 0, "rwkv6_scan": 0,
+            "linear_scan": 0}
 
 # the data plane's column types (the reference runs with 64-bit JAX)
 _DTYPES = {torch.int64: 0, torch.float64: 1}
@@ -395,3 +397,116 @@ def span_segment(keys, valid: torch.Tensor):
     build.check(err, "span_segment")
     LAUNCHES["span_segment"] += 1
     return seg, is_start, count
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 and RG-LRU recurrences
+# ---------------------------------------------------------------------------
+_SCAN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_RWKV_DK = (16, 32, 64, 128)
+_RWKV_MAX_DV = 256  # threads a block (csrc/rwkv6_scan.cu kMaxDv)
+
+
+def _contiguous(name: str, **tensors) -> None:
+    for arg, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{name} needs {arg} contiguous")
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          w: torch.Tensor, u: torch.Tensor, state=None,
+          return_state: bool = False):
+    """The WKV6 recurrence: r, k, w [B,H,T,Dk], v [B,H,T,Dv], u [H,Dk] ->
+    out [B,H,T,Dv] in r's dtype, and with `return_state` the final state
+    [B,H,Dk,Dv] float32; `state` (the same shape, float32) is the initial
+    one.  One launch of `csrc/rwkv6_scan.cu` on the card; it reads r, k, v
+    (one dtype), w and u each in its own dtype (bf16 or float32), takes any
+    T, Dk in (16, 32, 64, 128) and Dv a multiple of 8 up to 256, all
+    contiguous and 16-byte aligned."""
+    tensors = (r, k, v, w, u) + (() if state is None else (state,))
+    if not _on_cuda(*tensors):
+        return ref.rwkv6(r, k, v, w, u, state=state,
+                         return_state=return_state)
+    if r.ndim != 4 or k.shape != r.shape or w.shape != r.shape \
+            or v.ndim != 4 or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"rwkv6 takes r, k, w [B,H,T,Dk] and v [B,H,T,Dv]; "
+                         f"got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(w.shape)}")
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    if u.shape != (h, dk):
+        raise ValueError(f"rwkv6 takes u [H,Dk] = ({h}, {dk}), got "
+                         f"{tuple(u.shape)}")
+    if state is not None and (state.shape != (b, h, dk, dv)
+                              or state.dtype != torch.float32):
+        raise ValueError(f"rwkv6 takes a float32 state [B,H,Dk,Dv] = "
+                         f"({b}, {h}, {dk}, {dv}), got {state.dtype} "
+                         f"{tuple(state.shape)}")
+    if dk not in _RWKV_DK or dv % 8 or not 8 <= dv <= _RWKV_MAX_DV:
+        raise ValueError(f"rwkv6 takes Dk in {_RWKV_DK} and Dv a multiple "
+                         f"of 8 up to {_RWKV_MAX_DV}, got Dk={dk}, Dv={dv}")
+    for name, x in (("r", r), ("w", w), ("u", u)):
+        if x.dtype not in _SCAN_DTYPES:
+            raise TypeError(f"rwkv6 takes bf16 or float32 {name}, got "
+                            f"{x.dtype}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6 takes r, k, v of one dtype, got {r.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    _contiguous("rwkv6", r=r, k=k, v=v, w=w, u=u,
+                **({} if state is None else {"state": state}))
+    if any(x.data_ptr() % 16 for x in (r, k, v, w)):
+        raise ValueError("rwkv6 needs r, k, v, w 16-byte aligned")
+    if max(b * h, t) >= 2**31:
+        raise ValueError("rwkv6 sizes must fit in int32")
+    out = torch.empty((b, h, t, dv), dtype=r.dtype, device=r.device)
+    s_out = (torch.empty((b, h, dk, dv), dtype=torch.float32,
+                         device=r.device) if return_state else None)
+    if b * h:
+        lib = build.library("rwkv6_scan")
+        err = lib.repro_rwkv6_scan(
+            dk, *(_SCAN_DTYPES[x.dtype] for x in (r, w, u)),
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state is None else state.data_ptr(),
+            None if s_out is None else s_out.data_ptr(), out.data_ptr(),
+            b * h, h, t, dv, _stream(r.device))
+        build.check(err, "rwkv6_scan")
+        LAUNCHES["rwkv6_scan"] += 1
+    return (out, s_out) if return_state else out
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
+    """h_t = a_t·h_{t-1} + b_t over axis -2: a, b [..., T, D] float32 ->
+    h [..., T, D] float32; `h0` [..., D] float32 enters as h_{-1} (the
+    reference's fold b_0 += a_0·h0).  One launch of `csrc/linear_scan.cu`
+    on the card, on contiguous tensors of any T."""
+    tensors = (a, b) + (() if h0 is None else (h0,))
+    if not _on_cuda(*tensors):
+        return ref.linear_scan(a, b, h0=h0)
+    if a.ndim < 2 or b.shape != a.shape:
+        raise ValueError(f"linear_scan takes a, b [..., T, D] of one shape, "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}")
+    lead, t, d = a.shape[:-2], a.shape[-2], a.shape[-1]
+    if h0 is not None and h0.shape != lead + (d,):
+        raise ValueError(f"linear_scan takes h0 {tuple(lead + (d,))}, got "
+                         f"{tuple(h0.shape)}")
+    for name, x in (("a", a), ("b", b)) + (() if h0 is None
+                                           else (("h0", h0),)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"linear_scan takes float32 {name}, got "
+                            f"{x.dtype}")
+    _contiguous("linear_scan", a=a, b=b,
+                **({} if h0 is None else {"h0": h0}))
+    g = a.numel() // max(t * d, 1)
+    if g > 65535 or d >= 2**31:
+        raise ValueError(f"linear_scan takes at most 65,535 sequences of "
+                         f"fewer than 2**31 channels, got {g} of {d}")
+    out = torch.empty_like(a)
+    if out.numel():
+        lib = build.library("linear_scan")
+        err = lib.repro_linear_scan(
+            a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(), out.data_ptr(), g, t, d,
+            _stream(a.device))
+        build.check(err, "linear_scan")
+        LAUNCHES["linear_scan"] += 1
+    return out

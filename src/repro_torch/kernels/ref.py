@@ -4,7 +4,12 @@ functions of `repro.kernels.ref`).
 Each function computes exactly what its CUDA kernel computes, with ordinary
 torch ops.  The CPU path of `kernels.ops` runs these, the tests hold them
 against the reference's oracles, and `chip_smoke.py` holds each kernel
-against them on the card.  Nothing on the card's main path calls them.
+against them on the card.  Where the reference's models call its oracles
+(plain attention, the recurrences' one-token decode step and their paths
+without `use_kernel`), the port's models call these too, as the reference
+does; every other call on the card goes to a kernel.  `rwkv6_chunked` and
+`linear_scan_chunked` have no kernel: they are the reference's chunked
+forms, which the models take without `use_kernel`.
 """
 
 from __future__ import annotations
@@ -168,3 +173,138 @@ def span_segment(keys, valid: torch.Tensor):
     is_start = valid & (differs | ~prev_valid)
     seg = torch.clamp(scans.cumsum(is_start) - 1, min=0)
     return seg, is_start, is_start.sum()
+
+
+# ---------------------------------------------------------------------------
+# rwkv6 — the WKV6 recurrence (data-dependent decay linear attention)
+# ---------------------------------------------------------------------------
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor, state=None, return_state: bool = False):
+    """r, k, w [B,H,T,Dk], v [B,H,T,Dv], u [H,Dk]; per step
+
+        out_t = r_t @ (S + u^T ⊙ (k_t^T v_t));  S = diag(w_t) S + k_t^T v_t
+
+    with S [B,H,Dk,Dv] float32 (zeros unless `state` is given).  float32
+    math, the output in r's dtype; `(out, S)` with `return_state`."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    S = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    outs = []
+    for i in range(t):
+        kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, i], S + uf * kv))
+        S = wf[:, :, i, :, None] * S + kv
+    out = (torch.stack(outs, dim=2) if outs
+           else torch.zeros((b, h, 0, dv), device=r.device)).to(r.dtype)
+    return (out, S) if return_state else out
+
+
+def _affine_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
+    """Inclusive scan of the affine monoid (a1, b1) ⊕ (a2, b2) = (a1·a2,
+    a2·b1 + b2) along `dim` (Hillis–Steele doubling, log2(n) steps, as an
+    associative scan).  `a` broadcasts against `b` (a may lack b's
+    trailing axes)."""
+    n = b.shape[dim]
+    extra = b.ndim - a.ndim
+    step = 1
+    while step < n:
+        a_prev = a.narrow(dim, 0, n - step)
+        b_prev = b.narrow(dim, 0, n - step)
+        a_cur = a.narrow(dim, step, n - step)
+        b_cur = b.narrow(dim, step, n - step)
+        a_exp = a_cur.reshape(a_cur.shape + (1,) * extra)
+        a = torch.cat([a.narrow(dim, 0, step), a_prev * a_cur], dim)
+        b = torch.cat([b.narrow(dim, 0, step), a_exp * b_prev + b_cur], dim)
+        step *= 2
+    return a, b
+
+
+def rwkv6_chunked(r, k, v, w, u, chunk: int = 32, state=None,
+                  return_state: bool = False):
+    """`rwkv6` as dense per-chunk products (GLA style), the reference's
+    `ref.rwkv6_chunked`: with L = cumsum(log w) inside a chunk,
+    r~_t = r_t·exp(L_{t-1}) and k~_j = k_j·exp(-L_j),
+
+      intra-chunk:  ((r~ @ k~^T) ⊙ strict-causal) @ v  +  (r·u·k) v
+      inter-chunk:  r~ @ S_chunk_start
+      state:        S <- diag(A_C) S + (k~ ⊙ A_C)^T @ v
+
+    and the chunk-start states from an associative scan over chunks.
+    T % chunk == 0."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    if t % chunk:
+        raise ValueError(f"rwkv6_chunked needs T % chunk == 0, got T={t}, "
+                         f"chunk={chunk}")
+    nc, c = t // chunk, chunk
+    rf, kf, vf, wf = (x.float().reshape(b, h, nc, c, -1)
+                      for x in (r, k, v, w))
+    uf = u.float()
+
+    logw = torch.log(torch.clamp(wf, min=1e-38))
+    lc = torch.cumsum(logw, dim=3)                    # inclusive
+    lx = lc - logw                                    # exclusive
+    r_t = rf * torch.exp(lx)
+    k_t = kf * torch.exp(-lc)
+    a_c = torch.exp(lc[:, :, :, -1:, :])              # [b,h,nc,1,dk]
+
+    decay = a_c[:, :, :, 0, :]                        # [b,h,nc,dk]
+    p = torch.einsum("bhnck,bhncv->bhnkv", k_t * a_c, vf)
+    s0 = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    ca, cs = _affine_scan(decay, p, dim=2)
+    s_incl = ca[..., None] * s0[:, :, None] + cs      # after chunk n
+    s_start = torch.cat([s0[:, :, None], s_incl[:, :, :-1]], dim=2)
+
+    inter = torch.einsum("bhnck,bhnkv->bhncv", r_t, s_start)
+    scores = torch.einsum("bhnck,bhnjk->bhncj", r_t, k_t)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                      diagonal=-1)
+    intra = torch.einsum("bhncj,bhnjv->bhncv",
+                         torch.where(mask, scores, 0.0), vf)
+    diag = torch.sum(rf * uf[None, :, None, None, :] * kf, dim=-1,
+                     keepdim=True) * vf
+    out = (inter + intra + diag).reshape(b, h, t, dv).to(r.dtype)
+    return (out, s_incl[:, :, -1]) if return_state else out
+
+
+# ---------------------------------------------------------------------------
+# linear_scan — the diagonal recurrence h_t = a_t * h_{t-1} + b_t (RG-LRU)
+# ---------------------------------------------------------------------------
+def linear_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
+    """a, b [..., T, D] -> h [..., T, D] in a's dtype (float32 math), as an
+    associative scan over T.  `h0` [..., D] is folded into the first step
+    as b_0 + a_0·h0."""
+    af, bf = a.float(), b.float()
+    if h0 is not None:
+        bf = bf.clone()
+        bf[..., 0, :] += af[..., 0, :] * h0.float()
+    _, h = _affine_scan(af, bf, dim=-2 % af.ndim)
+    return h.to(a.dtype)
+
+
+def linear_scan_chunked(a: torch.Tensor, b: torch.Tensor, h0=None,
+                        chunk: int = 128) -> torch.Tensor:
+    """`linear_scan` as a loop over chunks of `chunk` steps, each an
+    associative scan with the carry folded in after it (the reference's
+    `ref.linear_scan_chunked`, without its checkpointing: the port only
+    serves).  Falls back to `linear_scan` when T % chunk or T <= chunk."""
+    t, d = a.shape[-2], a.shape[-1]
+    if t % chunk or t <= chunk:
+        return linear_scan(a, b, h0=h0)
+    lead = a.shape[:-2]
+    af = a.float().reshape(lead + (t // chunk, chunk, d))
+    bf = b.float().reshape(lead + (t // chunk, chunk, d))
+    h = (torch.zeros(lead + (d,), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    outs = []
+    for i in range(t // chunk):
+        ca, cb = _affine_scan(af[..., i, :, :], bf[..., i, :, :],
+                              dim=len(lead))
+        out = cb + ca * h[..., None, :]
+        outs.append(out)
+        h = out[..., -1, :]
+    return torch.cat(outs, dim=-2).reshape(lead + (t, d)).to(a.dtype)

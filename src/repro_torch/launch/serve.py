@@ -1,4 +1,5 @@
-"""Serving launcher: batched token generation for a dense --arch.
+"""Serving launcher: batched token generation for a dense, rwkv6 or hybrid
+--arch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --requests 8 --max-new 16 [--device cpu]
@@ -7,9 +8,12 @@ Port of the token-serving half of `repro.launch.serve`, with its flags and
 `--device`: it runs on the card unless told otherwise.  The config is the
 registry's, as in the reference, so attention is plain (`attn_impl="xla"`)
 and the CUDA flash kernel runs only for a config that asks for
-`attn_impl="flash"`.  Weights are drawn from a seeded generator, as the
-reference's launcher does; no checkpoint is read.  `--dataflow` (the
-multi-tenant data-flow engine) is not ported yet.
+`attn_impl="flash"`; the model leaves `use_kernel` unset, as the
+reference's launcher does, so the rwkv6 and RG-LRU recurrences take their
+plain paths.  Weights are drawn from a seeded generator, as the
+reference's launcher does; no checkpoint is read.  The moe, encdec and vlm
+families and `--dataflow` (the multi-tenant data-flow engine) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -63,7 +67,8 @@ def main(argv=None):
     engine.generate(reqs)
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.out_tokens) for r in reqs)
-    print(f"[serve] {cfg.name} on {device} ({cfg.attn_impl} attention): "
+    attn = "" if cfg.family == "rwkv6" else f", {cfg.attn_impl} attention"
+    print(f"[serve] {cfg.name} on {device} ({cfg.family}{attn}): "
           f"{len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s)")
     for i, r in enumerate(reqs[:4]):

@@ -8,6 +8,10 @@ its `state_dict` keys are the tree's dotted paths (`layers.0.attn.wq`,
 `embed.table`; `interop.model_params` builds one from the reference's
 pytree).  The weights the passes read are cast once to the activation dtype
 at the first call after `init` / `load_params` (`transformer.cast_params`).
+
+`use_kernel` is the reference transformer's switch, carried to `forward`
+and `prefill`: it sends the rwkv6 and RG-LRU recurrences to their kernels.
+It defaults to False, as the reference's facade and launcher leave it.
 """
 
 from __future__ import annotations
@@ -40,10 +44,11 @@ class ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", use_kernel=False):
         super().__init__()
         self.cfg = cfg
         self.device = torch.device(device)
+        self.use_kernel = use_kernel
         tree = T.init_params(None, cfg, self.device)
         self.layers = nn.ModuleList(ParamTree(lp) for lp in tree.pop("layers"))
         for k, v in tree.items():
@@ -81,7 +86,8 @@ class Model(nn.Module):
     @torch.inference_mode()
     def logits(self, batch: dict):
         """(logits [B, T, V], aux loss) for batch['tokens'] [B, T]."""
-        return T.forward(self.params(), self.cfg, batch["tokens"])
+        return T.forward(self.params(), self.cfg, batch["tokens"],
+                         use_kernel=self.use_kernel)
 
     # -- serving ------------------------------------------------------------
     def init_decode_state(self, batch: int, seq: int) -> list:
@@ -90,7 +96,8 @@ class Model(nn.Module):
     @torch.inference_mode()
     def prefill(self, batch: dict, state: list):
         """Fused full-prompt forward that fills the decode caches."""
-        return T.prefill(self.params(), self.cfg, batch, state)
+        return T.prefill(self.params(), self.cfg, batch, state,
+                         use_kernel=self.use_kernel)
 
     @torch.inference_mode()
     def decode_step(self, token, state: list):
@@ -110,5 +117,5 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
-def make_model(cfg: ModelConfig, device="cuda") -> Model:
-    return Model(cfg, device)
+def make_model(cfg: ModelConfig, device="cuda", use_kernel=False) -> Model:
+    return Model(cfg, device, use_kernel)

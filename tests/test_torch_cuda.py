@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain torch version,
-and the main path with the kernels against the eager executor.
+the data-flow main path with the kernels against the eager executor, and
+the served models' kernel paths against their plain paths.
 
 Marked `cuda`; every test skips without a CUDA device (the kernels have no
 CPU mode).  Imports no JAX, so it runs on a machine that has only the port:
@@ -310,3 +311,120 @@ def test_cuda_engine_flash_matches_plain_attention(cuda):
                     max_new_tokens=5) for i in range(3)]
     Engine(flash, batch_slots=2, max_seq=128).generate(reqs)
     assert all(len(r.out_tokens) == 5 for r in reqs)
+
+
+# (B, H, T, Dk, Dv): the reference kernel test's three shapes
+# (tests/test_kernels.py), a ragged T with Dk != Dv, and rwkv6-3b's heads
+RWKV_SHAPES = [(1, 2, 64, 16, 16), (2, 1, 128, 32, 64), (1, 1, 256, 64, 64),
+               (2, 3, 37, 32, 48), (4, 40, 300, 64, 64)]
+# float32 inputs: summation order only (tests/test_kernels.py's 3e-4);
+# bf16 r/k/v: the output is rounded to bf16 by both
+RWKV_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RWKV_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_cuda_rwkv6_scan_matches_plain(cuda, dtype, shape, with_state):
+    b, h, t, dk, dv = shape
+    g = torch.Generator().manual_seed(t + dk)
+    r, k = (torch.randn((b, h, t, dk), generator=g).to(cuda, dtype)
+            for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=g).to(cuda, dtype)
+    # w and u in float32 with a state (the prefill path), in r's dtype
+    # without (the forward path)
+    wu = torch.float32 if with_state else dtype
+    w = (0.3 + 0.695 * torch.rand((b, h, t, dk), generator=g)).to(cuda, wu)
+    u = torch.randn((h, dk), generator=g).to(cuda, wu)
+    s0 = ((torch.randn((b, h, dk, dv), generator=g) * 0.1).to(cuda)
+          if with_state else None)
+    tops.reset_launches()
+    got, gs = tops.rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["rwkv6_scan"] == 1 and got.dtype == dtype
+    want, ws = tref.rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    tol = RWKV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(gs, ws, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(tops.rwkv6(r, k, v, w, u, state=s0).float(),
+                               got.float(), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_t_d", [(2, 64, 8), (1, 500, 16), (3, 256, 128),
+                                   (4, 1031, 2560)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_cuda_linear_scan_matches_plain(cuda, g_t_d, with_h0):
+    gsz, t, d = g_t_d
+    g = torch.Generator().manual_seed(t)
+    a = (0.2 + 0.79 * torch.rand((gsz, t, d), generator=g)).to(cuda)
+    b = torch.randn((gsz, t, d), generator=g).to(cuda)
+    h0 = torch.randn((gsz, d), generator=g).to(cuda) if with_h0 else None
+    tops.reset_launches()
+    got = tops.linear_scan(a, b, h0=h0)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["linear_scan"] == 1
+    # tests/test_kernels.py's 1e-4: an FMA a step against a log-depth scan
+    torch.testing.assert_close(got, tref.linear_scan(a, b, h0=h0),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_recurrence_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 2, 8, 16), device=cuda)
+    u = torch.zeros((2, 16), device=cuda)
+    with pytest.raises(ValueError, match="Dk in"):
+        tops.rwkv6(x[..., :12].contiguous(), x[..., :12].contiguous(),
+                   x, x[..., :12].contiguous(), u[:, :12].contiguous())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tops.rwkv6(x, x, x[..., :12].contiguous(), x, u)
+    with pytest.raises(TypeError):
+        tops.rwkv6(x.half(), x, x, x, u)
+    with pytest.raises(TypeError, match="one dtype"):
+        tops.rwkv6(x, x.bfloat16(), x, x, u)
+    with pytest.raises(ValueError, match="aligned"):
+        off = torch.zeros(257, device=cuda)[1:].view(1, 2, 8, 16)
+        tops.rwkv6(off, x, x, x, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.rwkv6(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, x, u)
+    with pytest.raises(ValueError, match="state"):
+        tops.rwkv6(x, x, x, x, u, state=torch.zeros((1, 2, 16, 16),
+                                                    device=cuda).double())
+    with pytest.raises(ValueError, match="mixed"):
+        tops.rwkv6(x, x, x, x, u.cpu())
+    a = torch.zeros((2, 8, 4), device=cuda)
+    with pytest.raises(TypeError):
+        tops.linear_scan(a.double(), a.double())
+    with pytest.raises(ValueError, match="h0"):
+        tops.linear_scan(a, a, h0=torch.zeros((2, 5), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.linear_scan(a.transpose(0, 1), a.transpose(0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_cuda_recurrent_prefill_kernel_matches_plain(cuda, arch):
+    # bf16 activations over float32 parameters, as at full width: the
+    # kernel path against use_kernel=False on the same weights
+    cfg = get_config(arch, reduced=True, dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    kern = make_model(cfg, cuda, use_kernel=True).init(gen)
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, 16), generator=rng).to(cuda)
+    tops.reset_launches()
+    lk, sk = kern.prefill({"tokens": toks}, kern.init_decode_state(4, 32))
+    torch.cuda.synchronize()
+    n_rec = sum(k != "attn" for k in
+                (cfg.block_pattern * cfg.n_layers)[:cfg.n_layers]) \
+        if cfg.family == "hybrid" else cfg.n_layers
+    name = "rwkv6_scan" if cfg.family == "rwkv6" else "linear_scan"
+    assert tops.LAUNCHES[name] == n_rec
+    kern.use_kernel = False
+    lp, sp = kern.prefill({"tokens": toks}, kern.init_decode_state(4, 32))
+    torch.testing.assert_close(lk, lp, rtol=5e-2, atol=5e-2)
+    reqs = [Request(prompt=toks[i, : 5 + 3 * i].cpu().numpy(),
+                    max_new_tokens=4) for i in range(3)]
+    kern.use_kernel = True
+    Engine(kern, batch_slots=2, max_seq=32).generate(reqs)
+    assert all(len(r.out_tokens) == 4 for r in reqs)

@@ -328,8 +328,7 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(Model).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "rwkv6-3b",
-                                  "recurrentgemma-2b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-tiny",
                                   "phi-3-vision-4.2b"])
 def test_other_families_are_not_ported(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
