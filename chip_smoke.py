@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only probe,flash   # build + those checks only
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
@@ -16,10 +17,15 @@ more lines each:
   device   the card's name and power limit (nvidia-smi), first line
   build    the seven kernels built from the checkout with nvcc (one nvcc
            per source, in parallel), ptxas lines
-  kernels  each kernel against its plain torch version on the card; the
+  kernels  each kernel against its plain torch version on the card;
+           sorted_probe and probe_positions exactly at q15's probe size
+           and larger, timed in turns against torch.searchsorted; the
            span kernels bitwise on every slot at 8,388,608 rows; flash
            attention at the reference test's seven shapes and the served
-           shapes, timed against the plain version and SDPA, with a bound;
+           shapes (as the prefill lays them out, [B,T,H,D] memory), timed
+           against the plain version and SDPA, with a bound; the probe's
+           and flash's rows carry the profiler's device time beside the
+           CUDA-event time;
            rwkv6_scan and linear_scan at the reference test's shapes and
            the served shapes, with and without a state, timed against the
            plain version, with a bound
@@ -35,7 +41,10 @@ more lines each:
            library-call time and bound
   profile  torch.profiler over a warm q15 run_device on each route: device
            kernels per step, device busy time, idle share against the
-           unprofiled step time, top device ops, repo-kernel time
+           unprofiled step time, top device ops, repo-kernel time; then
+           q15's and q7's device kernels per step on each route with the
+           join probe as one launch and, in turns, as the parent tree's
+           four (search, cast, maximum, clamp)
   serve    qwen3-0.6b (28 layers, d_model 1024, f32 weights, bf16
            activations, attn_impl="flash") from a seeded generator; 8
            requests of 1024-2048 prompt tokens and 32 greedy new tokens
@@ -175,6 +184,26 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_us(fn, reps: int = 20):
+    """Device time per call of `fn()` in us: the device kernels of `reps`
+    calls under torch.profiler, summed, over reps; None when the profiler
+    records no device kernel.  Beside `cuda_ms` it tells whether the card
+    or the host sets a call's pace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        _, n_kernels, per_name = _device_busy(prof)
+        if n_kernels:
+            return sum(per_name.values()) / reps
+    return None
+
+
 def nvidia_smi() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -199,29 +228,97 @@ def phase_build(res: dict) -> None:
                 say("build", f"{name}: {line.strip()}")
 
 
-def phase_kernels(res: dict, dev) -> None:
+def _probe_kernel_checks(res: dict, dev) -> None:
+    """sorted_probe and probe_positions against their plain versions at
+    three sizes, with sorted and unsorted queries; times by CUDA events
+    and device time by the profiler, beside torch.searchsorted."""
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator().manual_seed(0)
-    m = 1_000_000
-    for n in (10_000, 1_000_000):
+    rows = []
+    # q15's probe (16,384 supplier codes, 32,768 queries), then larger
+    for n, m in ((16_384, 32_768), (10_000, 1_000_000),
+                 (1_000_000, 1_000_000)):
         keys = torch.sort(torch.randint(0, 4 * n, (n,), generator=g)).values
         keys = keys.to(dev)
         q = torch.randint(-10, 4 * n + 10, (m,), generator=g).to(dev)
+        first = torch.tensor(n // 3, dtype=torch.int64, device=dev)
         for qs in ("unsorted", "sorted"):
             qq = torch.sort(q).values if qs == "sorted" else q
             got, want = ops.sorted_probe(keys, qq), ref.sorted_probe(keys, qq)
+            pos = ops.probe_positions(keys, qq, first, n - 7)
+            pos_want = ref.probe_positions(keys, qq, first, n - 7)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"sorted_probe N={n} M={m} {qs} differs")
-            ms = cuda_ms(lambda: ops.sorted_probe(keys, qq), 20)
-            plain = cuda_ms(lambda: ref.sorted_probe(keys, qq), 20)
-            lib = cuda_ms(lambda: torch.searchsorted(keys, qq), 20)
-            bound = _bound(n * 8 + m * 8 + m * 4,
-                           m * max(1, math.ceil(math.log2(n + 1))))
-            say("kernels", f"sorted_probe N={n} M={m} {qs} queries: exact; "
-                f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
-                f"bound_ms={bound[0]:.4f} ({bound[1]})")
+            if not torch.equal(pos, pos_want):
+                raise AssertionError(f"probe_positions N={n} M={m} {qs} "
+                                     f"differs")
+            row = {"n": n, "m": m, "queries": qs,
+                   **_probe_times(keys, qq, first, n - 7)}
+            rows.append(row)
+            say("kernels", f"sorted_probe / probe_positions N={n} M={m} {qs} "
+                f"queries: exact; {_probe_line(row)}")
+    res["probe_checks"] = rows
+
+
+def _probe_times(keys, q, first, hi) -> dict:
+    """Event ms and profiler device us per call of sorted_probe,
+    probe_positions, their plain versions and torch.searchsorted, with the
+    bound of the search (int32 positions out)."""
+    from repro_torch.kernels import ops, ref
+
+    calls = {
+        "sorted_probe": lambda: ops.sorted_probe(keys, q),
+        "probe_positions": lambda: ops.probe_positions(keys, q, first, hi),
+        "plain": lambda: ref.sorted_probe(keys, q),
+        "plain_positions": lambda: ref.probe_positions(keys, q, first, hi),
+        "searchsorted": lambda: torch.searchsorted(keys, q),
+        # the parent tree's probe: the search, a cast, a maximum, a clamp
+        "parent_positions": lambda: _old_probe(keys, q, first, hi),
+    }
+    # at this size each call's host time sets its pace, and a host's pace
+    # drifts: time the calls in turns (forwards, then backwards) and take
+    # the mean of the two
+    out = {f"{name}_ms": 0.0 for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        out[f"{name}_ms"] += cuda_ms(calls[name], 50) / 2
+    for name, fn in calls.items():
+        out[f"{name}_device_us"] = device_us(fn)
+    bound = _bound(*_probe_work(keys, q))
+    out.update(bound_ms=bound[0], bound_by=bound[1])
+    return out
+
+
+def _probe_work(keys, q) -> tuple:
+    """The search's least bytes (keys and queries read once, int32
+    positions written once) and its compares."""
+    n, m, isz = keys.shape[0], q.shape[0], keys.element_size()
+    return n * isz + m * isz + m * 4, m * max(1, math.ceil(math.log2(n + 1)))
+
+
+def _us(x) -> str:
+    return "not measured" if x is None else f"{x:.2f}"
+
+
+def _probe_line(r: dict) -> str:
+    return (f"ms={r['sorted_probe_ms']:.4f} (device us "
+            f"{_us(r['sorted_probe_device_us'])}) probe_positions_ms="
+            f"{r['probe_positions_ms']:.4f} (device us "
+            f"{_us(r['probe_positions_device_us'])}; the parent's four "
+            f"launches {r['parent_positions_ms']:.4f}, device us "
+            f"{_us(r['parent_positions_device_us'])}) plain_ms="
+            f"{r['plain_ms']:.4f} plain_positions_ms="
+            f"{r['plain_positions_ms']:.4f} library_ms="
+            f"{r['searchsorted_ms']:.4f} (torch.searchsorted, device us "
+            f"{_us(r['searchsorted_device_us'])}) bound_ms="
+            f"{r['bound_ms']:.6f} ({r['bound_by']})")
+
+
+def _segmented_kernel_checks(res: dict, dev) -> None:
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator().manual_seed(0)
     n = 8_388_608
     flags = torch.rand(n, generator=g) < 0.01
     flags[0] = True
@@ -254,9 +351,18 @@ def phase_kernels(res: dict, dev) -> None:
                     f"bound_ms={bound[0]:.4f} ({bound[1]})")
             del v
     torch.cuda.empty_cache()
-    _span_kernel_checks(res, dev)
-    _flash_kernel_checks(res, dev)
-    _scan_kernel_checks(res, dev)
+
+
+def phase_kernels(res: dict, dev, only=None) -> None:
+    """Every kernel against its plain version, or only the checks named in
+    `only` (probe, scan, span, flash, recurrence)."""
+    checks = {"probe": _probe_kernel_checks,
+              "scan": _segmented_kernel_checks,
+              "span": _span_kernel_checks, "flash": _flash_kernel_checks,
+              "recurrence": _scan_kernel_checks}
+    for name, check in checks.items():
+        if only is None or name in only:
+            check(res, dev)
 
 
 def serve_prompts(vocab: int) -> list:
@@ -301,6 +407,15 @@ def _sdpa(q, k, v, causal, window):
                                           enable_gqa=gqa)
 
 
+def _attn_operand(g, b, h, t, d, dev, dt, strided: bool) -> torch.Tensor:
+    """A seeded [B,H,T,D] operand: contiguous, or [B,T,H,D] memory viewed
+    as [B,H,T,D], as the prefill's projections are."""
+    if strided:
+        x = torch.randn((b, t, h, d), generator=g).to(dev, dt)
+        return x.transpose(1, 2)
+    return torch.randn((b, h, t, d), generator=g).to(dev, dt)
+
+
 def _close(got, want, tol) -> tuple:
     """(ok, max |got - want|) under atol = rtol = tol, as allclose reads it."""
     diff = (got.float() - want.float()).abs()
@@ -322,11 +437,14 @@ def _flash_kernel_checks(res: dict, dev) -> None:
                         for i in range(0, len(lens), SERVE_SLOTS))]
     g = torch.Generator().manual_seed(3)
     rows = []
-    for shape, causal, window, dt in ATTN_TEST_SHAPES + served:
+    cases = [(c, False) for c in ATTN_TEST_SHAPES] + [
+        (ATTN_TEST_SHAPES[0][:3] + (torch.bfloat16,), True)] + [
+        (c, True) for c in served]
+    for (shape, causal, window, dt), strided in cases:
         b, hq, hkv, t, s, d = shape
-        q = torch.randn((b, hq, t, d), generator=g).to(dev, dt)
-        k = torch.randn((b, hkv, s, d), generator=g).to(dev, dt)
-        v = torch.randn((b, hkv, s, d), generator=g).to(dev, dt)
+        q = _attn_operand(g, b, hq, t, d, dev, dt, strided)
+        k = _attn_operand(g, b, hkv, s, d, dev, dt, strided)
+        v = _attn_operand(g, b, hkv, s, d, dev, dt, strided)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.attention(q, k, v, causal=causal, window=window)
         lib_out = _sdpa(q, k, v, causal, window)
@@ -334,7 +452,7 @@ def _flash_kernel_checks(res: dict, dev) -> None:
         ok, err = _close(got, want, ATTN_TOL[dt])
         lib_ok, lib_err = _close(lib_out, want, ATTN_TOL[dt])
         name = f"flash_attention {shape} causal={causal} window={window} " \
-            f"{str(dt)[6:]}"
+            f"{str(dt)[6:]}{' [B,T,H,D] views' if strided else ''}"
         if not ok:
             raise AssertionError(f"{name}: max abs err {err:g} over "
                                  f"atol=rtol={ATTN_TOL[dt]:g}")
@@ -342,20 +460,27 @@ def _flash_kernel_checks(res: dict, dev) -> None:
             raise AssertionError(f"{name}: SDPA disagrees with the plain "
                                  f"version ({lib_err:g}), not a yardstick")
         big = t * s >= 1 << 20
-        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                                 window=window), 10 if big else 50)
+        flash = lambda: ops.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                            window=window)
+        ms = cuda_ms(flash, 10 if big else 50)
         plain = cuda_ms(lambda: ref.attention(q, k, v, causal=causal,
                                               window=window), 3 if big else 20)
         lib = cuda_ms(lambda: _sdpa(q, k, v, causal, window), 10 if big else 50)
+        dev_us = device_us(flash, 10)
+        lib_us = device_us(lambda: _sdpa(q, k, v, causal, window), 10)
         bound = _attn_bound(q, k, v, causal, window)
+        flops = _attn_flops(b, hq, t, s, d, causal, window)
         rows.append({"shape": list(shape), "causal": causal, "window": window,
-                     "dtype": str(dt)[6:], "max_abs_err": err, "ms": ms,
+                     "dtype": str(dt)[6:], "strided": strided,
+                     "max_abs_err": err, "ms": ms, "device_us": dev_us,
                      "plain_ms": plain, "library_ms": lib,
+                     "library_device_us": lib_us, "tflops": flops / ms * 1e-9,
                      "bound_ms": bound[0], "bound_by": bound[1]})
         say("kernels", f"{name}: max abs err {err:.3g} (atol=rtol="
-            f"{ATTN_TOL[dt]:g}); ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} (SDPA) bound_ms={bound[0]:.5f} "
-            f"({bound[1]})")
+            f"{ATTN_TOL[dt]:g}); ms={ms:.4f} (device us {_us(dev_us)}, "
+            f"{flops / ms * 1e-9:.1f} TFLOP/s) plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (SDPA, device us {_us(lib_us)}) "
+            f"bound_ms={bound[0]:.5f} ({bound[1]})")
         del q, k, v, got, want, lib_out
     res["flash_shapes"] = rows
     torch.cuda.empty_cache()
@@ -538,9 +663,10 @@ class Checker:
     slot).  The plain versions touch no launch count.  Keeps the first call
     of each kernel for the timing phase."""
 
-    NAMES = ("sorted_probe", "segment_reduce", "segmented_scan",
-             "span_compact", "span_segment")
-    KERNEL = {"sorted_probe": "sorted_probe", "segment_reduce":
+    NAMES = ("sorted_probe", "probe_positions", "segment_reduce",
+             "segmented_scan", "span_compact", "span_segment")
+    KERNEL = {"sorted_probe": "sorted_probe",
+              "probe_positions": "sorted_probe", "segment_reduce":
               "segmented_scan", "segmented_scan": "segmented_scan",
               "span_compact": "span_compact", "span_segment": "span_segment"}
 
@@ -610,14 +736,14 @@ class Checker:
 
     def _check(self, name, a, k, got, want) -> None:
         v = a[0]
-        if name == "sorted_probe":
-            op = "probe"
+        if name in ("sorted_probe", "probe_positions"):
+            op = "probe" if name == "sorted_probe" else "probe+clamp"
         else:  # segment_reduce(v, ids, n, op, valid), segmented_scan(v, f, op)
             i = 3 if name == "segment_reduce" else 2
             op = k.get("op", a[i] if len(a) > i else "add")
         rec = {"wrapper": name, "op": op, "dtype": str(v.dtype)[6:],
                "shape": list(v.shape)}
-        if name == "sorted_probe":
+        if name in ("sorted_probe", "probe_positions"):
             rec["queries"] = int(a[1].shape[0])
         if got.shape != want.shape or got.dtype != want.dtype:
             ok, how = False, f"shape/dtype {tuple(got.shape)} {got.dtype} vs " \
@@ -719,7 +845,7 @@ def phase_flows(res: dict, dev) -> dict:
             f"eager; mega equals composed bit for bit; plan "
             f"{cp.flow.op_names()[::-1]}; data+optimize {t_plan:.1f}s, "
             f"eager {t_eager:.1f}s")
-        if name == "q15":
+        if name in ("q15", "q7"):
             plans[name] = (cps, b)
     for k in DATA_KERNELS:
         if total["mega"][k] == 0:
@@ -782,17 +908,27 @@ def phase_timing(res: dict, plans: dict) -> list:
     seen = res.pop("q15_first_calls")
     errs = res["path_max_abs_err"]
     kernels = []
-    # sorted_probe at the first probe q15 runs
-    (keys, q), _ = seen["sorted_probe"]
-    n, m, isz = keys.shape[0], q.shape[0], keys.element_size()
-    bytes_ = n * isz + m * isz + m * 4
-    opers = m * max(1, math.ceil(math.log2(n + 1)))
-    kernels.append(_entry(
+    # sorted_probe at the first probe q15 runs (through probe_positions):
+    # ms, plain_ms and library_ms of the search alone, as torch.searchsorted
+    # computes it; beside them the clamped entry the path calls, and the
+    # profiler's device time of each
+    (keys, q, first, hi), _ = seen["probe_positions"]
+    pt = _probe_times(keys, q, first, hi)
+    entry = _entry(
         "sorted_probe", res["launches"], errs["sorted_probe"],
-        cuda_ms(lambda: ops.sorted_probe(keys, q), 50),
-        cuda_ms(lambda: ref.sorted_probe(keys, q), 50),
-        bytes_, opers, cuda_ms(lambda: torch.searchsorted(keys, q), 50),
-        f"N={n} keys, M={m} queries, {keys.dtype}"))
+        pt["sorted_probe_ms"], pt["plain_ms"], *_probe_work(keys, q),
+        pt["searchsorted_ms"],
+        f"N={keys.shape[0]} keys, M={q.shape[0]} queries, {keys.dtype}, "
+        f"first_valid {'given' if first is not None else 'none'}")
+    entry.update(device_us=pt["sorted_probe_device_us"],
+                 library_device_us=pt["searchsorted_device_us"],
+                 probe_positions_ms=pt["probe_positions_ms"],
+                 probe_positions_device_us=pt["probe_positions_device_us"],
+                 plain_positions_ms=pt["plain_positions_ms"],
+                 parent_positions_ms=pt["parent_positions_ms"],
+                 parent_positions_device_us=pt["parent_positions_device_us"])
+    say("timing", f"sorted_probe at q15's first probe: {_probe_line(pt)}")
+    kernels.append(entry)
     # segmented_scan through its segment_reduce entry, as q15 calls it
     (v, sid, nseg), kw = seen["segment_reduce"][0][:3], seen["segment_reduce"][1]
     op, valid = kw.get("op", "add"), kw.get("valid")
@@ -1040,6 +1176,58 @@ def phase_profile(res: dict, plans: dict) -> None:
             f"{k} {t:.1f}" for k, t in repo.items()))
         with open(os.path.join(OUT_DIR, f"q15_profile_{r}.txt"), "w") as f:
             f.write(prof.key_averages().table(row_limit=40))
+    _probe_launch_counts(res, plans)
+
+
+def _old_probe(keys, queries, first_valid=None, hi=None):
+    """The join probe as the parent tree ran it, launch for launch: the
+    int32 search, then a cast, a maximum (ordered right side) and a clamp,
+    each a device kernel of its own.  The same positions as
+    `ops.probe_positions`."""
+    from repro_torch.kernels import ops
+
+    pos = ops.sorted_probe(keys, queries).to(torch.int64)
+    if first_valid is not None:
+        pos = torch.maximum(pos, first_valid)
+    return torch.clamp(pos, 0, keys.shape[0] - 1 if hi is None else hi)
+
+
+def _probe_launch_counts(res: dict, plans: dict) -> None:
+    """Device kernels of one profiled warm run_device of q15 and q7 on each
+    route, with the join probe as one launch (this tree) and as the parent
+    tree's four (`_old_probe` in its place), taken in turns in one run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
+    res["probe_kernels_per_step"] = {}
+    real = ops.probe_positions
+    for flow in ("q15", "q7"):
+        cps, b = plans[flow]
+        masked = cps["mega"].bind_device(b)
+        for r in ROUTES:
+            counts = {}
+            for variant in ("before", "after", "after", "before") * 4:
+                ops.probe_positions = _old_probe if variant == "before" \
+                    else real
+                try:
+                    cps[r].run_device(masked)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        cps[r].run_device(masked)
+                        torch.cuda.synchronize()
+                finally:
+                    ops.probe_positions = real
+                counts.setdefault(variant, []).append(_device_busy(prof)[1])
+            # the profiler now and then loses records of a step: a step's
+            # count is the one most of its samples give
+            mode = {v: max(set(c), key=c.count) for v, c in counts.items()}
+            res["probe_kernels_per_step"][f"{flow} {r}"] = {
+                "samples": counts, **mode}
+            say("profile", f"{flow} {r} route: device kernels per run_device "
+                f"step, the probe as one launch (this tree) {mode['after']}, "
+                f"as the parent's cast + maximum + clamp {mode['before']} "
+                f"(samples in turns: {counts})")
+
 
 
 class AttnChecker:
@@ -1272,25 +1460,33 @@ def phase_serve(res: dict, dev) -> dict:
     _profile_decode("serve", serve, model, lf, state, dec)
     res["serve"] = serve
 
-    # the kernel's numbers at the main path's first call
+    # the kernel's numbers at the main path's first call, by CUDA events
+    # and by the profiler's device time
     q, k, v, causal, window = chk.first
     b, hq, tq, d = q.shape
     bytes_ = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     opers = _attn_flops(b, hq, tq, k.shape[2], d, causal, window)
+    flash = lambda: ops.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                        window=window)
+    lib = lambda: _sdpa(q, k, v, causal, window)  # noqa: E731
     entry = _entry(
-        "flash_attention", launches, chk.max_err,
-        cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                            window=window), 20),
+        "flash_attention", launches, chk.max_err, cuda_ms(flash, 20),
         cuda_ms(lambda: ref.attention(q, k, v, causal=causal, window=window),
                 3),
-        bytes_, opers, cuda_ms(lambda: _sdpa(q, k, v, causal, window), 20),
-        f"q {list(q.shape)}, k/v {list(k.shape)}, causal, "
-        f"{str(q.dtype)[6:]}", BF16_TENSOR_OPS_PER_S)
+        bytes_, opers, cuda_ms(lib, 20),
+        f"q {list(q.shape)}, k/v {list(k.shape)} (strides {q.stride()}, "
+        f"{k.stride()}), causal, {str(q.dtype)[6:]}", BF16_TENSOR_OPS_PER_S)
+    entry.update(device_us=device_us(flash, 10),
+                 library_device_us=device_us(lib, 10),
+                 tflops=opers / entry["ms"] * 1e-9)
     say("serve", f"flash_attention at the first prefill's shape "
-        f"({entry.pop('shape')}): ms={entry['ms']:.4f} "
-        f"plain_ms={entry['plain_ms']:.4f} library_ms={entry['library_ms']:.4f} "
-        f"(SDPA) bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); "
-        f"max_abs_err over the path's calls {entry['max_abs_err']:g}")
+        f"({entry.pop('shape')}): ms={entry['ms']:.4f} (device us "
+        f"{_us(entry['device_us'])}, {entry['tflops']:.1f} TFLOP/s) "
+        f"plain_ms={entry['plain_ms']:.4f} library_ms="
+        f"{entry['library_ms']:.4f} (SDPA, device us "
+        f"{_us(entry['library_device_us'])}) bound_ms="
+        f"{entry['bound_ms']:.5f} ({entry['bound_by']}); max_abs_err over "
+        f"the path's calls {entry['max_abs_err']:g}")
     return entry
 
 
@@ -1488,7 +1684,7 @@ def phase_serve_recurrent(res: dict, dev, arch: str) -> dict:
     return entry
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -1496,6 +1692,15 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
+    # `--only probe,flash,...`: the build and the named kernel checks
+    # alone, for a short run while a kernel changes; no result line
+    only = None
+    if len(argv) == 2 and argv[0] == "--only":
+        only = set(argv[1].split(","))
+    elif argv:
+        print(f"usage: chip_smoke.py [--only CHECK,...]; got {argv}",
+              file=sys.stderr)
+        return 2
     smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
@@ -1508,7 +1713,13 @@ def main() -> int:
     try:
         phase_build(res)
         phase = "kernels"
-        phase_kernels(res, dev)
+        phase_kernels(res, dev, only)
+        if only is not None:
+            say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
+            os.makedirs(OUT_DIR, exist_ok=True)
+            with open(os.path.join(OUT_DIR, "chip_smoke_only.json"), "w") as f:
+                json.dump(res, f, indent=1, default=str)
+            return 0
         phase = "flows"
         plans = phase_flows(res, dev)
         phase = "timing"
@@ -1540,4 +1751,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

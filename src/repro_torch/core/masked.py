@@ -307,14 +307,19 @@ def segment_reduce_backend(use_kernels: bool):
     return kops.KernelSegmentOps
 
 
-def _probe(rcode: torch.Tensor, lcode: torch.Tensor,
+def _probe(rcode: torch.Tensor, lcode: torch.Tensor, first_valid, hi: int,
            use_kernels: bool) -> torch.Tensor:
-    """Leftmost insertion positions of `lcode` in the ascending `rcode`."""
+    """Leftmost insertion positions of `lcode` in the ascending `rcode`,
+    raised to `first_valid` (when given) and clamped into [0, hi]: one
+    kernel launch under `use_kernels`."""
     if use_kernels:
         from ..kernels import ops as kops
 
-        return kops.sorted_probe(rcode, lcode).to(torch.int64)
-    return torch.searchsorted(rcode, lcode)
+        return kops.probe_positions(rcode, lcode, first_valid, hi)
+    pos = torch.searchsorted(rcode, lcode)
+    if first_valid is not None:
+        pos = torch.maximum(pos, first_valid)
+    return torch.clamp(pos, 0, hi)
 
 
 def _low(dtype: torch.dtype):
@@ -474,10 +479,7 @@ def _exec_match_pk(op: MatchOp, lb: MaskedBatch, rb: MaskedBatch,
                                                     use_order)
     rcols = rb.columns if order is None \
         else {f: v[order] for f, v in rb.columns.items()}
-    pos = _probe(rcode, lcode, use_kernels)
-    if first_valid is not None:
-        pos = torch.maximum(pos, first_valid)
-    pos = torch.clamp(pos, 0, rb.capacity - 1)
+    pos = _probe(rcode, lcode, first_valid, rb.capacity - 1, use_kernels)
     hit = (rcode[pos] == lcode) & lb.valid & rvalid[pos]
     if obs is not None:  # observed probe hits (join-fanout feedback)
         obs["groups"] = hit.sum()
@@ -511,10 +513,7 @@ def _exec_match_anti(op: MatchOp, lb: MaskedBatch, rb: MaskedBatch,
     harmless — any valid occurrence of the code marks presence)."""
     lcode, rcode_raw = _match_codes(op, lb, rb)
     rcode, first_valid, _, rvalid = _probe_side(op, rb, rcode_raw, use_order)
-    pos = _probe(rcode, lcode, use_kernels)
-    if first_valid is not None:
-        pos = torch.maximum(pos, first_valid)
-    pos = torch.clamp(pos, 0, rb.capacity - 1)
+    pos = _probe(rcode, lcode, first_valid, rb.capacity - 1, use_kernels)
     present = (rcode[pos] == lcode) & rvalid[pos]
     keep = lb.valid & ~present
     if obs is not None:  # observed survivors (selectivity feedback)

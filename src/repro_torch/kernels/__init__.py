@@ -2,7 +2,9 @@
 
 Data plane (the paper's local strategies, ports of `repro.kernels`; the
 CUDA sources are in `repro_torch/csrc/`):
-  sorted_probe   — join probe: a binary search per query (`csrc/sorted_probe.cu`)
+  sorted_probe   — join probe: a binary search per query; its
+                   `probe_positions` entry also clamps, in the same launch
+                   (`csrc/sorted_probe.cu`)
   segmented_scan — grouped aggregation: segmented add/max/min scan and the
                    segment_reduce entry (`csrc/segmented_scan.cu`)
   span_compact   — a megakernel span's interior boundary: the stable

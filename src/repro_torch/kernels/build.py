@@ -115,7 +115,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     if name == "sorted_probe":
         fn = lib.repro_sorted_probe
-        fn.argtypes = [i, p, ll, p, ll, p, p]
+        fn.argtypes = [i, p, ll, p, ll, p, i, p, ll, p]
         fn.restype = i
     elif name == "segmented_scan":
         fn = lib.repro_segmented_scan
@@ -126,8 +126,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         tiles.restype = ll
     elif name == "flash_attention":
         fn = lib.repro_flash_attention
-        fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, ctypes.c_float, i,
-                       i, p]
+        fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, ctypes.c_float,
+                       i, i, p]
         fn.restype = i
     elif name == "span_compact":
         fn = lib.repro_span_compact

@@ -45,13 +45,15 @@ def reset_launches() -> None:
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix or on any
-    other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    """True for CUDA tensors on one card, False for CPU ones; raises on a
+    mix or on any other device.  (Integer device ids: the kernels' host
+    path is on the clock of small calls.)"""
+    if all(t.is_cuda for t in tensors):
+        dev = tensors[0].get_device()
+        if all(t.get_device() == dev for t in tensors[1:]):
+            return True
+    elif all(t.device.type == "cpu" for t in tensors):
         return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
     raise ValueError(f"kernel inputs on unsupported or mixed devices: "
                      f"{sorted(str(t.device) for t in tensors)}")
 
@@ -62,8 +64,18 @@ def _dtype_code(t: torch.Tensor) -> int:
     return _DTYPES[t.dtype]
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+_raw_stream = None  # torch's raw current-stream getter, once resolved
+
+
+def _stream(device) -> int:
+    """The current stream of a CUDA device (a `torch.device` or its index)
+    as an int, its cudaStream_t: torch's raw getter, which skips building a
+    `torch.cuda.Stream`."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(device if isinstance(device, int) else device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -210,28 +222,64 @@ class KernelSegmentOps(SegmentOps):
 # ---------------------------------------------------------------------------
 # Sorted probe
 # ---------------------------------------------------------------------------
+_probe_fn = None  # the resolved ctypes function, once built
+
+
+def _launch_probe(keys: torch.Tensor, q: torch.Tensor, out: torch.Tensor,
+                  clamp: int, first_valid, hi: int) -> None:
+    """One launch of `csrc/sorted_probe.cu` on 1-D keys and queries of one
+    dtype, on the card `_on_cuda` found them on.  At a join's size the
+    call's host time exceeds its device time, so the host path stays lean:
+    the ctypes function resolved once, the raw stream, each check once."""
+    global _probe_fn
+    if _probe_fn is None:
+        _probe_fn = build.library("sorted_probe").repro_sorted_probe
+    if keys.ndim != 1 or q.ndim != 1:
+        raise ValueError("sorted_probe takes 1-D keys and queries")
+    code = _DTYPES.get(keys.dtype)
+    if code is None or q.dtype != keys.dtype:
+        raise TypeError(f"sorted_probe takes int64 or float64 keys and "
+                        f"queries of one dtype; got {keys.dtype}, {q.dtype}")
+    keys, q = keys.contiguous(), q.contiguous()
+    err = _probe_fn(code, keys.data_ptr(), keys.shape[0], q.data_ptr(),
+                    q.shape[0], out.data_ptr(), clamp, first_valid, hi,
+                    _stream(q.get_device()))
+    if err:
+        build.check(err, "sorted_probe")
+    LAUNCHES["sorted_probe"] += 1
+
+
 def sorted_probe(keys_sorted: torch.Tensor, queries: torch.Tensor
                  ) -> torch.Tensor:
     """searchsorted(keys, queries, side='left') as int32 positions: one
     binary search per query on the card."""
     if not _on_cuda(keys_sorted, queries):
         return ref.sorted_probe(keys_sorted, queries)
-    if keys_sorted.ndim != 1 or queries.ndim != 1:
-        raise ValueError("sorted_probe takes 1-D keys and queries")
-    if keys_sorted.dtype != queries.dtype:
-        raise TypeError(f"keys {keys_sorted.dtype} vs queries {queries.dtype}")
-    code = _dtype_code(keys_sorted)
-    keys = keys_sorted.contiguous()
-    q = queries.contiguous()
-    m = q.shape[0]
-    out = torch.empty(m, dtype=torch.int32, device=q.device)
-    if m:
-        lib = build.library("sorted_probe")
-        err = lib.repro_sorted_probe(code, keys.data_ptr(), keys.shape[0],
-                                     q.data_ptr(), m, out.data_ptr(),
-                                     _stream(q.device))
-        build.check(err, "sorted_probe")
-        LAUNCHES["sorted_probe"] += 1
+    out = queries.new_empty(queries.shape[0], dtype=torch.int32)
+    if out.shape[0]:
+        _launch_probe(keys_sorted, queries, out, 0, None, 0)
+    return out
+
+
+def probe_positions(keys_sorted: torch.Tensor, queries: torch.Tensor,
+                    first_valid=None, hi=None) -> torch.Tensor:
+    """The join probe's int64 positions in one launch:
+    clamp(maximum(searchsorted(keys, queries, side='left'), first_valid),
+    0, hi), `hi` defaulting to len(keys) - 1.  `first_valid` is an int64
+    0-d tensor on the keys' card, read by the kernel itself."""
+    tensors = (keys_sorted, queries) if first_valid is None \
+        else (keys_sorted, queries, first_valid)
+    if not _on_cuda(*tensors):
+        return ref.probe_positions(keys_sorted, queries, first_valid, hi)
+    if first_valid is not None and (first_valid.dtype != torch.int64
+                                    or first_valid.numel() != 1):
+        raise TypeError(f"first_valid must be one int64, got "
+                        f"{first_valid.dtype} {tuple(first_valid.shape)}")
+    out = queries.new_empty(queries.shape[0], dtype=torch.int64)
+    if out.shape[0]:
+        _launch_probe(keys_sorted, queries, out, 1,
+                      None if first_valid is None else first_valid.data_ptr(),
+                      keys_sorted.shape[0] - 1 if hi is None else int(hi))
     return out
 
 
@@ -242,13 +290,26 @@ _ATTN_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128)
 
 
+def _row_strided(x: torch.Tensor) -> bool:
+    """The kernels' layout: head dim contiguous, the base and every
+    (batch, head, row) stride of a dimension longer than 1 16-byte
+    aligned."""
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(x.shape[i] == 1 or x.stride(i) * x.element_size() % 16 == 0
+                    for i in range(3)))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window=None, scale=None
                     ) -> torch.Tensor:
     """Causal / sliding-window GQA attention, q [B,Hq,T,D] and k/v
     [B,Hkv,S,D] -> [B,Hq,T,D] in q's dtype: one launch of the CUDA kernel
-    (`csrc/flash_attention.cu`).  On the card it takes contiguous bf16 or
-    float32 tensors with D in (32, 64, 128) and a window of at least 1."""
+    (`csrc/flash_attention.cu`).  On the card it takes bf16 or float32
+    tensors with D in (32, 64, 128) and a window of at least 1.  bf16
+    operands may be row-strided views (head dim contiguous, strides and
+    base 16-byte aligned), such as [B,T,H,D] memory viewed as [B,H,T,D],
+    and the bf16 output is [B,T,Hq,D] memory viewed as [B,Hq,T,D].  float32
+    operands are made contiguous."""
     if not _on_cuda(q, k, v):
         return ref.attention(q, k, v, causal=causal, window=window,
                              scale=scale)
@@ -267,23 +328,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _ATTN_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or float32 q, k, v of "
                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"flash_attention needs {name} contiguous and "
-                             f"16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention takes a window >= 1, got {window}")
     if max(b, hq, t, s) >= 2**31:
         raise ValueError("flash_attention sizes must fit in int32")
-    out = torch.empty_like(q)
+    if q.dtype == torch.float32:  # the f32 kernel takes contiguous tensors
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty_like(q)
+    else:  # [B,T,Hq,D] memory: the caller's transpose back is a view
+        out = torch.empty((b, t, hq, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if not _row_strided(x):
+            raise ValueError(f"flash_attention needs {name} with a "
+                             f"contiguous head dim and 16-byte aligned "
+                             f"rows; got strides {x.stride()}")
     if out.numel() == 0:
         return out
     # a window of S or more masks nothing the kernel could see
     win = -1 if window is None or window >= s else int(window)
+    strides = (ctypes.c_longlong * 12)(*(x.stride(i) for x in (q, k, v, out)
+                                         for i in range(3)))
     lib = build.library("flash_attention")
     err = lib.repro_flash_attention(
         _ATTN_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, hq, hkv, t, s,
+        out.data_ptr(), b, hq, hkv, t, s, strides,
         float(scale) if scale is not None else d ** -0.5, int(bool(causal)),
         win, _stream(q.device))
     build.check(err, "flash_attention")

@@ -65,6 +65,18 @@ def sorted_probe(keys_sorted: torch.Tensor, queries: torch.Tensor
     return torch.searchsorted(keys_sorted, queries, side="left").to(torch.int32)
 
 
+def probe_positions(keys_sorted: torch.Tensor, queries: torch.Tensor,
+                    first_valid=None, hi=None) -> torch.Tensor:
+    """The join probe's int64 positions: clamp(maximum(searchsorted(keys,
+    queries, side='left'), first_valid), 0, hi), `hi` defaulting to
+    len(keys) - 1 (`core.masked`'s PK and anti probes)."""
+    pos = torch.searchsorted(keys_sorted, queries, side="left")
+    if first_valid is not None:
+        pos = torch.maximum(pos, first_valid)
+    return torch.clamp(pos, 0, keys_sorted.shape[0] - 1 if hi is None
+                       else hi)
+
+
 # ---------------------------------------------------------------------------
 # flash_attention — causal/windowed GQA attention
 # ---------------------------------------------------------------------------

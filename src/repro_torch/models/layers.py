@@ -115,12 +115,12 @@ def _project_qkv(p, cfg, x, positions, use_rope=True):
 def _attention(cfg, q, k, v, causal, window):
     if cfg.attn_impl == "flash":
         # the hand-written CUDA kernel on the card (its plain version on
-        # CPU tensors); it takes contiguous [B, H, T, D] operands
+        # CPU tensors); it reads the projections' [B, T, H, D] memory
+        # through strides and writes o as [B, T, H, D] memory, so neither
+        # side copies
         from ..kernels import ops as kops
 
-        return kops.flash_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal,
-                                    window=window)
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
     from ..kernels import ref
 
     if cfg.attn_impl == "blocked":

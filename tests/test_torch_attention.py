@@ -91,6 +91,21 @@ def test_flash_wrapper_on_cpu_runs_the_plain_version(shape, causal, window,
     assert tops.LAUNCHES["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("shape,causal,window,dt,tol", SHAPES)
+def test_flash_wrapper_on_cpu_takes_bthd_views(shape, causal, window, dt,
+                                               tol):
+    # the prefill hands the kernel its projections as [B,T,H,D] memory
+    # viewed as [B,H,T,D]: the same values, strided rows
+    (q, k, v), (jq, jk, jv) = _qkv(shape, dt, 5)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    if shape[1] > 1 and shape[3] > 1:
+        assert not views[0].is_contiguous()
+    got = tops.flash_attention(*views, causal=causal, window=window)
+    want = _np(jref.attention(jq, jk, jv, causal=causal, window=window))
+    assert got.shape == q.shape and got.dtype == q.dtype
+    np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 3),
                                            (False, 2)])
 def test_fully_masked_rows_are_zero(causal, window):

@@ -46,6 +46,42 @@ def test_cuda_sorted_probe_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+@pytest.mark.parametrize("with_first", [False, True])
+def test_cuda_probe_positions_matches_plain(cuda, dtype, with_first):
+    # one launch gives the join probe's clamped int64 positions; M is not a
+    # multiple of the kernel's 256-query block
+    g = torch.Generator().manual_seed(2)
+    for n, m in [(1, 1), (16_384, 32_768), (10_000, 100_003),
+                 (1_000_000, 65_537), (40_000, 1_000)]:
+        keys = torch.sort(torch.randint(-10**6, 10**6, (n,), generator=g)
+                          .to(dtype)).values.to(cuda)
+        q = torch.randint(-2 * 10**6, 2 * 10**6, (m,), generator=g)
+        q = q.to(dtype).to(cuda)
+        first = torch.tensor(n // 3, device=cuda) if with_first else None
+        for hi in (n - 1, n // 2):
+            tops.reset_launches()
+            got = tops.probe_positions(keys, q, first, hi)
+            assert tops.LAUNCHES["sorted_probe"] == 1
+            assert got.dtype == torch.int64
+            assert torch.equal(got, tref.probe_positions(keys, q, first, hi))
+
+
+@pytest.mark.cuda
+def test_cuda_probe_positions_refuses_what_the_kernel_does_not_take(cuda):
+    keys = torch.arange(8, device=cuda)
+    with pytest.raises(TypeError):
+        tops.probe_positions(keys, keys, torch.tensor(1, dtype=torch.int32,
+                                                      device=cuda))
+    with pytest.raises(TypeError):
+        tops.probe_positions(keys, keys.double())
+    with pytest.raises(ValueError):
+        tops.probe_positions(keys[None], keys)
+    with pytest.raises(ValueError):  # first_valid on another device
+        tops.probe_positions(keys, keys, torch.tensor(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
 @pytest.mark.parametrize("c", [1, 3, 4])
 def test_cuda_segmented_scan_matches_plain(cuda, dtype, c):
     g = torch.Generator().manual_seed(1)
@@ -277,6 +313,45 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, shape, causal,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# (B, Hq, Hkv, T, S, D), causal, window, [B,T,H,D] views: every head dim,
+# GQA ratios 1, 2 and 8, T != S and T = 1, windows 1, 32 and >= S, T and S
+# not multiples of 64 or 128
+FLASH_EDGES = [
+    ((2, 4, 4, 200, 200, 32), True, None, True),
+    ((1, 8, 4, 333, 333, 64), True, 32, True),
+    ((1, 16, 2, 129, 129, 128), True, None, True),   # ratio 8
+    ((2, 8, 1, 1, 300, 128), True, None, False),     # one decode row
+    ((1, 4, 2, 100, 260, 128), True, 1, True),       # window 1, T < S
+    ((1, 4, 2, 257, 190, 64), True, None, False),    # T > S: masked rows
+    ((1, 2, 2, 190, 190, 128), True, 190, True),     # window >= S
+    ((3, 6, 3, 65, 127, 32), False, 40, True),
+    ((1, 4, 4, 1000, 1000, 128), False, None, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,strided", FLASH_EDGES)
+def test_cuda_flash_attention_edges(cuda, shape, causal, window, strided):
+    b, hq, hkv, t, s, d = shape
+    g = torch.Generator().manual_seed(t + 3 * s + d)
+
+    def operand(h, n):
+        if strided:  # the prefill's layout
+            x = torch.randn((b, n, h, d), generator=g)
+            return x.to(cuda, torch.bfloat16).transpose(1, 2)
+        return torch.randn((b, h, n, d), generator=g).to(cuda, torch.bfloat16)
+
+    q, k, v = operand(hq, t), operand(hkv, s), operand(hkv, s)
+    tops.reset_launches()
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == q.shape
+    want = tref.attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16)
@@ -285,8 +360,15 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
                              q[..., :48].contiguous())
     with pytest.raises(TypeError):
         tops.flash_attention(q, q.float(), q)
-    with pytest.raises(ValueError, match="contiguous"):
-        tops.flash_attention(q.transpose(2, 3).transpose(2, 3)[:, :, ::2], q, q)
+    # row-strided views are taken; a strided head dim or a misaligned row
+    # is not
+    wide = torch.zeros((1, 2, 8, 72), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        tops.flash_attention(torch.zeros((1, 2, 64, 64), device=cuda,
+                                         dtype=torch.bfloat16).transpose(2, 3),
+                             q, q)
+    with pytest.raises(ValueError, match="aligned"):
+        tops.flash_attention(wide[..., 4:68], q, q)
     with pytest.raises(ValueError, match="GQA"):
         tops.flash_attention(q, q[:, :1].repeat(1, 3, 1, 1),
                              q[:, :1].repeat(1, 3, 1, 1))

@@ -143,6 +143,38 @@ def test_plain_sorted_probe_matches_reference(n, m):
                                   got.numpy())
 
 
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("first_valid,cut", [(None, 0), (0, 0), (37, 0),
+                                             (37, 25), (None, 25)])
+def test_plain_probe_positions_match_reference(dtype, first_valid, cut):
+    # the join probe's positions: the Pallas probe (interpret mode), then
+    # numpy's maximum and clip, exactly; duplicate keys, queries past both
+    # ends, and a ceiling below the last key when `cut` is given
+    rng = np.random.default_rng(19 + (first_valid or 0) + cut)
+    n, m = 300, 517
+    keys = np.sort(rng.integers(-50, 50, n)).astype(dtype)
+    q = rng.integers(-80, 80, m).astype(dtype)
+    if dtype == "float64":
+        q[::3] += 0.5
+    hi = n - 1 - cut
+    want = np.asarray(jops.sorted_probe(jnp.asarray(keys), jnp.asarray(q)))
+    want = want.astype(np.int64)
+    if first_valid is not None:
+        want = np.maximum(want, first_valid)
+    want = np.clip(want, 0, hi)
+    fv = None if first_valid is None else torch.tensor(first_valid)
+    got = tref.probe_positions(_t(keys), _t(q), fv, hi)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    tops.reset_launches()
+    np.testing.assert_array_equal(
+        tops.probe_positions(_t(keys), _t(q), fv, hi).numpy(), want)
+    assert tops.LAUNCHES["sorted_probe"] == 0
+    if cut == 0:  # hi defaults to len(keys) - 1
+        np.testing.assert_array_equal(
+            tref.probe_positions(_t(keys), _t(q), fv).numpy(), want)
+
+
 def test_kernel_segment_ops_match_tensor_segment_ops():
     # the use_kernels backend and the plain backend give the same aggregates
     rng = np.random.default_rng(11)
@@ -173,3 +205,5 @@ def test_wrappers_refuse_other_devices():
     cpu = torch.arange(4)
     with pytest.raises(ValueError):
         tops.sorted_probe(cpu, meta)
+    with pytest.raises(ValueError):
+        tops.probe_positions(cpu, cpu, meta[0])
