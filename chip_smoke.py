@@ -26,9 +26,14 @@ more lines each:
            against the plain version and SDPA, with a bound; the probe's
            and flash's rows carry the profiler's device time beside the
            CUDA-event time;
-           rwkv6_scan and linear_scan at the reference test's shapes and
-           the served shapes, with and without a state, timed against the
-           plain version, with a bound
+           rwkv6_scan and linear_scan at the reference test's shapes, at
+           the edges of their tilings (T = 0, 1 and a step either side of
+           a chunk or slab, Dk 16 and 128 with Dv 256, a Dv or D off the
+           tile) with decays over [1e-6, 1] including 0 and 1 or gates
+           near 0 and near 1 (rwkv6_scan's final state bit for bit equal
+           over two calls), and at the served shapes, with and without a
+           state, timed against the plain version, with a bound and the
+           profiler's device time beside the CUDA-event time
   flows    q15 (6M lineitem rows), q7 (1M), clickstream (16M), textmining
            (1M), each through run and through bind_device + run_device on
            the megakernel route (the default) and the composed route
@@ -59,7 +64,8 @@ more lines each:
            2560, local window 2048), f32 weights, bf16 activations,
            Model(use_kernel=True): every rwkv6_scan / linear_scan call held
            against the plain recurrence on its inputs, the launches counted
-           (one per recurrent layer and prefill), the timed run; the
+           (one per recurrent layer and prefill), the timed run, the
+           kernel's event ms and device us at the first prefill's shape; the
            prefill's last-token logits against use_kernel=False on the same
            weights, within LOGIT_TOL with float32 activations and, with the
            served bf16 activations, no farther from the float32 logits
@@ -154,6 +160,18 @@ LSCAN_TOL = 1e-4        # linear_scan, float32: tests/test_kernels.py's
 RWKV_TEST_SHAPES = [(1, 2, 64, 16, 16), (2, 1, 128, 32, 64),
                     (1, 1, 256, 64, 64)]
 LSCAN_TEST_SHAPES = [(2, 64, 8), (1, 500, 16), (3, 256, 128)]
+# the edges of the scans' tilings (csrc/rwkv6_scan.cu: 32-column tiles,
+# chunks of 16 steps at Dk 32/64, 8 at Dk 128, 32 at Dk 16, outputs flushed
+# every 8 steps; csrc/linear_scan.cu: 32-channel tiles, 64-step slabs):
+# T = 0, 1 and a step either side of a chunk or slab, Dk 128 with Dv 256
+# and Dk 16, Dv not a multiple of the column tile
+RWKV_EDGE_SHAPES = [(1, 2, 0, 64, 64), (1, 2, 1, 64, 64),
+                    (1, 2, 15, 64, 64), (2, 1, 17, 64, 40),
+                    (1, 2, 9, 128, 256), (1, 1, 7, 128, 256),
+                    (2, 3, 33, 16, 40), (1, 2, 31, 16, 8),
+                    (1, 1, 50, 32, 72)]
+LSCAN_EDGE_SHAPES = [(2, 1, 8), (1, 63, 100), (3, 64, 100), (2, 65, 8),
+                     (1, 129, 2560)]
 # (B, Hq, Hkv, T, S, D), causal, window, dtype: tests/test_kernels.py:55-63
 ATTN_TEST_SHAPES = [
     ((1, 4, 2, 128, 128, 64), True, None, torch.float32),
@@ -186,9 +204,12 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
 
 def device_us(fn, reps: int = 20):
     """Device time per call of `fn()` in us: the device kernels of `reps`
-    calls under torch.profiler, summed, over reps; None when the profiler
-    records no device kernel.  Beside `cuda_ms` it tells whether the card
-    or the host sets a call's pace."""
+    calls under torch.profiler, summed, over the calls it recorded.  The
+    profiler now and then drops a share of a run's kernels; every call
+    launches the same kernels, so the fewest launches of any one kernel
+    name is the number of calls it kept.  None when it records nothing.
+    Beside `cuda_ms` it tells whether the card or the host sets a call's
+    pace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -198,9 +219,13 @@ def device_us(fn, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        _, n_kernels, per_name = _device_busy(prof)
-        if n_kernels:
-            return sum(per_name.values()) / reps
+        total, count = 0.0, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                total += e.time_range.end - e.time_range.start
+                count[e.name] = count.get(e.name, 0) + 1
+        if count:
+            return total / min(min(count.values()), reps)
     return None
 
 
@@ -516,6 +541,60 @@ def _rwkv_inputs(g, dev, b, h, t, dk, dv, dt, w_dt, u_dt):
     return r, k, v, w, u
 
 
+def _extreme_decays(g, shape, dev, dt) -> torch.Tensor:
+    """w log-uniform over [1e-6, 1], with exact 0s and 1s mixed in."""
+    w = torch.pow(10.0, -6.0 * torch.rand(shape, generator=g))
+    pick = torch.rand(shape, generator=g)
+    w[pick < 0.05] = 0.0
+    w[pick > 0.95] = 1.0
+    return w.to(dev, dt)
+
+
+def _lscan_gates(g, shape, dev, mode: str) -> torch.Tensor:
+    """a for linear_scan near 0 (no memory) or near 1 (long memory)."""
+    x = torch.rand(shape, generator=g)
+    return (1e-3 * x if mode == "near0" else 1.0 - 1e-4 * x).to(dev)
+
+
+def _scan_edge_checks(dev, g) -> None:
+    """rwkv6_scan and linear_scan at the edges of their tilings, with
+    extreme decays / gates; rwkv6_scan's final state bit for bit equal
+    between two calls."""
+    from repro_torch.kernels import ops, ref
+
+    for b, h, t, dk, dv in RWKV_EDGE_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            r, k, _, _, u = _rwkv_inputs(g, dev, b, h, t, dk, dv, dt,
+                                         torch.float32, torch.float32)
+            v = torch.randn((b, h, t, dv), generator=g).to(dev, dt)
+            w = _extreme_decays(g, (b, h, t, dk), dev, torch.float32)
+            st = (torch.randn((b, h, dk, dv), generator=g) * 0.1).to(dev)
+            args = (r, k, v, w, u)
+            name = f"rwkv6_scan {(b, h, t, dk, dv)} {str(dt)[6:]} r/k/v"
+            err = _rwkv_check(name, ops, ref, args, st, True)
+            s1 = ops.rwkv6(*args, state=st, return_state=True)[1]
+            s2 = ops.rwkv6(*args, state=st, return_state=True)[1]
+            if not _bitwise_equal(s1, s2):
+                raise AssertionError(f"{name}: two calls' final states "
+                                     f"differ")
+            say("kernels", f"{name}, w in [1e-6, 1] with 0s and 1s, state "
+                f"in and out: max abs err {err:.3g}; final state bit for "
+                f"bit equal over two calls")
+    for gsz, t, d in LSCAN_EDGE_SHAPES:
+        for mode in ("near0", "near1"):
+            a = _lscan_gates(g, (gsz, t, d), dev, mode)
+            bb = torch.randn((gsz, t, d), generator=g).to(dev)
+            for h0 in (None, torch.randn((gsz, d), generator=g).to(dev)):
+                ok, err = _close(ops.linear_scan(a, bb, h0=h0),
+                                 ref.linear_scan(a, bb, h0=h0), LSCAN_TOL)
+                name = (f"linear_scan {(gsz, t, d)} a {mode} "
+                        f"h0={h0 is not None}")
+                if not ok:
+                    raise AssertionError(f"{name}: max abs err {err:g} over "
+                                         f"{LSCAN_TOL:g}")
+                say("kernels", f"{name}: max abs err {err:.3g}")
+
+
 def _rwkv_check(name, ops, ref, args, state, return_state) -> float:
     """One rwkv6_scan call against the sequential plain recurrence."""
     got = ops.rwkv6(*args, state=state, return_state=return_state)
@@ -568,6 +647,7 @@ def _scan_kernel_checks(res: dict, dev) -> None:
                                      f"err {err:g} over {LSCAN_TOL:g}")
             say("kernels", f"linear_scan {(gsz, t, d)} h0={h0 is not None}: "
                 f"max abs err {err:.3g} (atol=rtol={LSCAN_TOL:g})")
+    _scan_edge_checks(dev, g)
 
     lens = [len(p) for p in serve_prompts(get_config("rwkv6-3b").vocab)]
     chunks = [max(lens[i:i + SERVE_SLOTS])
@@ -585,16 +665,21 @@ def _scan_kernel_checks(res: dict, dev) -> None:
             name = (f"rwkv6_scan {(SERVE_SLOTS, h, t, dk, dk)} bf16 r/k/v, "
                     f"{str(w_dt)[6:]} w/u, state={with_state}")
             err = _rwkv_check(name, ops, ref, args, st, with_state)
-            ms = cuda_ms(lambda: ops.rwkv6(*args, state=st,
-                                           return_state=with_state), 10)
+            def kern():
+                return ops.rwkv6(*args, state=st, return_state=with_state)
+
+            ms = cuda_ms(kern, 10)
+            dev_us = device_us(kern, 10)
             plain = cuda_ms(lambda: ref.rwkv6(*args, state=st,
                                               return_state=with_state), 1, 1)
             bound = _bound(*_rwkv_bound(*args, st, with_state))
             rows.append({"kernel": "rwkv6_scan", "name": name,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "bound_ms": bound[0], "bound_by": bound[1]})
+                         "max_abs_err": err, "ms": ms, "device_us": dev_us,
+                         "plain_ms": plain, "bound_ms": bound[0],
+                         "bound_by": bound[1]})
             say("kernels", f"{name}: max abs err {err:.3g}; ms={ms:.4f} "
-                f"plain_ms={plain:.3f} bound_ms={bound[0]:.4f} ({bound[1]})")
+                f"(device us {_us(dev_us)}) plain_ms={plain:.3f} "
+                f"bound_ms={bound[0]:.4f} ({bound[1]})")
             del args, st
     d = get_config("recurrentgemma-2b").rglru_d_state
     for t in chunks:
@@ -607,14 +692,20 @@ def _scan_kernel_checks(res: dict, dev) -> None:
             if not ok:
                 raise AssertionError(f"{name}: max abs err {err:g} over "
                                      f"{LSCAN_TOL:g}")
-            ms = cuda_ms(lambda: ops.linear_scan(a, bb, h0=h0), 20)
+            def kern():
+                return ops.linear_scan(a, bb, h0=h0)
+
+            ms = cuda_ms(kern, 20)
+            dev_us = device_us(kern, 20)
             plain = cuda_ms(lambda: ref.linear_scan(a, bb, h0=h0), 5)
             bound = _bound(*_lscan_bound(a, bb, h0))
             rows.append({"kernel": "linear_scan", "name": name,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "bound_ms": bound[0], "bound_by": bound[1]})
+                         "max_abs_err": err, "ms": ms, "device_us": dev_us,
+                         "plain_ms": plain, "bound_ms": bound[0],
+                         "bound_by": bound[1]})
             say("kernels", f"{name}: max abs err {err:.3g}; ms={ms:.4f} "
-                f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
+                f"(device us {_us(dev_us)}) plain_ms={plain:.4f} "
+                f"bound_ms={bound[0]:.4f} ({bound[1]})")
         del a, bb
     res["scan_shapes"] = rows
     torch.cuda.empty_cache()
@@ -1660,7 +1751,11 @@ def phase_serve_recurrent(res: dict, dev, arch: str) -> dict:
     if kernel == "rwkv6_scan":
         args, st, rs = chk.first[kernel]
         bytes_, opers = _rwkv_bound(*args, st, rs)
-        ms = cuda_ms(lambda: ops.rwkv6(*args, state=st, return_state=rs), 20)
+
+        def kern():
+            return ops.rwkv6(*args, state=st, return_state=rs)
+
+        ms = cuda_ms(kern, 20)
         plain = cuda_ms(lambda: ref.rwkv6(*args, state=st, return_state=rs),
                         2, 1)
         what = (f"r/k/w {list(args[0].shape)}, v {list(args[2].shape)}, "
@@ -1669,14 +1764,20 @@ def phase_serve_recurrent(res: dict, dev, arch: str) -> dict:
     else:
         a, b, h0 = chk.first[kernel]
         bytes_, opers = _lscan_bound(a, b, h0)
-        ms = cuda_ms(lambda: ops.linear_scan(a, b, h0=h0), 20)
+
+        def kern():
+            return ops.linear_scan(a, b, h0=h0)
+
+        ms = cuda_ms(kern, 20)
         plain = cuda_ms(lambda: ref.linear_scan(a, b, h0=h0), 5)
         what = (f"a/b {list(a.shape)} float32, "
                 f"{'with' if h0 is not None else 'no'} h0")
     entry = _entry(kernel, launches, chk.max_err[kernel], ms, plain, bytes_,
                    opers, None, what)
+    entry["device_us"] = device_us(kern, 20)
     say(phase, f"{kernel} at the first prefill's shape ({entry.pop('shape')}):"
-        f" ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
+        f" ms={entry['ms']:.4f} (device us {_us(entry['device_us'])}) "
+        f"plain_ms={entry['plain_ms']:.4f} "
         f"library_ms=null (no single PyTorch call computes the recurrence) "
         f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); "
         f"max_abs_err over the path's calls {entry['max_abs_err']:g}")

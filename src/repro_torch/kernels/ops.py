@@ -473,7 +473,7 @@ def span_segment(keys, valid: torch.Tensor):
 # ---------------------------------------------------------------------------
 _SCAN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _RWKV_DK = (16, 32, 64, 128)
-_RWKV_MAX_DV = 256  # threads a block (csrc/rwkv6_scan.cu kMaxDv)
+_RWKV_MAX_DV = 256  # csrc/rwkv6_scan.cu kMaxDv
 
 
 def _contiguous(name: str, **tensors) -> None:

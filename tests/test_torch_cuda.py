@@ -452,6 +452,67 @@ def test_cuda_linear_scan_matches_plain(cuda, g_t_d, with_h0):
                                rtol=1e-4, atol=1e-4)
 
 
+# the edges of the scans' tilings: rwkv6_scan's 32-column tiles, chunks of
+# 16 steps at Dk 32/64 (8 at Dk 128, 32 at Dk 16) and 8-step output
+# flushes; linear_scan's 32-channel tiles and 64-step slabs
+RWKV_EDGES = [(1, 2, 0, 64, 64), (1, 2, 1, 64, 64), (1, 2, 7, 64, 64),
+              (1, 2, 9, 64, 64), (1, 2, 15, 64, 64), (1, 2, 16, 64, 64),
+              (2, 1, 17, 64, 40), (1, 2, 9, 128, 256), (1, 1, 70, 128, 256),
+              (2, 3, 31, 16, 40), (1, 2, 33, 16, 8), (1, 1, 50, 32, 72)]
+LSCAN_EDGES = [(2, 1, 8), (1, 63, 100), (3, 64, 100), (2, 65, 8),
+               (1, 129, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RWKV_EDGES)
+def test_cuda_rwkv6_scan_edges(cuda, dtype, shape):
+    # decays over [1e-6, 1] with exact 0s and 1s, a state in and out; the
+    # final state bit for bit equal between two calls
+    b, h, t, dk, dv = shape
+    g = torch.Generator().manual_seed(7 * t + dv)
+    r, k = (torch.randn((b, h, t, dk), generator=g).to(cuda, dtype)
+            for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=g).to(cuda, dtype)
+    w = torch.pow(10.0, -6.0 * torch.rand((b, h, t, dk), generator=g))
+    pick = torch.rand((b, h, t, dk), generator=g)
+    w[pick < 0.05] = 0.0
+    w[pick > 0.95] = 1.0
+    w = w.to(cuda)
+    u = torch.randn((h, dk), generator=g).to(cuda)
+    s0 = (torch.randn((b, h, dk, dv), generator=g) * 0.1).to(cuda)
+    tops.reset_launches()
+    got, gs = tops.rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["rwkv6_scan"] == 1 and got.shape == (b, h, t, dv)
+    want, ws = tref.rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    tol = RWKV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(gs, ws, rtol=3e-4, atol=3e-4)
+    _, gs2 = tops.rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    assert torch.equal(gs.view(torch.int32), gs2.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_t_d", LSCAN_EDGES)
+@pytest.mark.parametrize("gate", ["near0", "near1"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_cuda_linear_scan_edges(cuda, g_t_d, gate, with_h0):
+    # a near 0 (no memory) and near 1 (long memory)
+    gsz, t, d = g_t_d
+    g = torch.Generator().manual_seed(t + d)
+    x = torch.rand((gsz, t, d), generator=g)
+    a = (1e-3 * x if gate == "near0" else 1.0 - 1e-4 * x).to(cuda)
+    b = torch.randn((gsz, t, d), generator=g).to(cuda)
+    h0 = torch.randn((gsz, d), generator=g).to(cuda) if with_h0 else None
+    tops.reset_launches()
+    got = tops.linear_scan(a, b, h0=h0)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["linear_scan"] == 1
+    torch.testing.assert_close(got, tref.linear_scan(a, b, h0=h0),
+                               rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_cuda_recurrence_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((1, 2, 8, 16), device=cuda)
