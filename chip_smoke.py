@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only probe,flash   # build + those checks only
+    python3 chip_smoke.py --only dataflow      # build + flows, timing, profile
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
@@ -19,8 +20,16 @@ more lines each:
            per source, in parallel), ptxas lines
   kernels  each kernel against its plain torch version on the card;
            sorted_probe and probe_positions exactly at q15's probe size
-           and larger, timed in turns against torch.searchsorted; the
-           span kernels bitwise on every slot at 8,388,608 rows; flash
+           and larger, timed in turns against torch.searchsorted;
+           segmented_scan at 8,388,608 rows and segment_reduce with gappy
+           ids and a mask as q15 calls it, over one segment spanning every
+           tile, at n = 1 and a tile either side, all rows invalid, empty
+           ids before, between and after the rows, and float64 sums over
+           segments of three tiles or more bit for bit equal over two
+           calls; the span kernels bitwise on every slot at 8,388,608 rows
+           (span_compact for up to 32 columns); segmented_scan and
+           span_compact one device kernel a call, as the profiler counts;
+           flash
            attention at the reference test's seven shapes and the served
            shapes (as the prefill lays them out, [B,T,H,D] memory), timed
            against the plain version and SDPA, with a bound; the probe's
@@ -42,8 +51,9 @@ more lines each:
            against the kernel's plain version on its own inputs; the routes
            and the CUDA launches per kernel and route
   timing   warm run / run_device of q15 on both routes, taken in turns;
-           each kernel at the shapes q15 gives it: time, plain time,
-           library-call time and bound
+           each kernel at the shapes q15 gives it: time, the profiler's
+           device time and device kernels a call, plain time, library-call
+           time and bound
   profile  torch.profiler over a warm q15 run_device on each route: device
            kernels per step, device busy time, idle share against the
            unprofiled step time, top device ops, repo-kernel time; then
@@ -124,7 +134,11 @@ KERNEL_SOURCES = {
 DATA_KERNELS = ("sorted_probe", "segmented_scan", "span_compact",
                 "span_segment")
 SPAN_KERNELS = ("span_compact", "span_segment")
-REPO_KERNELS = ("probe_kernel", "tile_reduce", "tile_carries", "tile_apply",
+# (the parent tree's tile_reduce / tile_carries / tile_apply and
+# compact_count / compact_scatter stay on the list, so the profile phase
+# tallies them when this script measures that tree)
+REPO_KERNELS = ("probe_kernel", "segscan_lookback", "compact_lookback",
+                "tile_reduce", "tile_carries", "tile_apply",
                 "compact_count", "compact_scatter", "block_offsets",
                 "segment_count", "segment_write", "flash_bf16", "flash_f32",
                 "wkv6_kernel", "linear_scan_kernel")
@@ -202,14 +216,15 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_us(fn, reps: int = 20):
-    """Device time per call of `fn()` in us: the device kernels of `reps`
-    calls under torch.profiler, summed, over the calls it recorded.  The
-    profiler now and then drops a share of a run's kernels; every call
-    launches the same kernels, so the fewest launches of any one kernel
-    name is the number of calls it kept.  None when it records nothing.
-    Beside `cuda_ms` it tells whether the card or the host sets a call's
-    pace."""
+def device_profile(fn, reps: int = 20) -> tuple:
+    """(device time per call of `fn()` in us, device kernels per call):
+    the device kernels of `reps` calls under torch.profiler, summed, over
+    the calls it recorded.  The profiler now and then drops a share of a
+    run's kernels; every call launches the same kernels, so the fewest
+    launches of any one kernel name is the number of calls it kept (at
+    most `reps`), and a name launched twice a call counts twice.  (None,
+    None) when it records nothing.  Beside `cuda_ms` the time tells
+    whether the card or the host sets a call's pace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -225,8 +240,25 @@ def device_us(fn, reps: int = 20):
                 total += e.time_range.end - e.time_range.start
                 count[e.name] = count.get(e.name, 0) + 1
         if count:
-            return total / min(min(count.values()), reps)
-    return None
+            kept = min(min(count.values()), reps)
+            return total / kept, sum(round(c / kept) for c in count.values())
+    return None, None
+
+
+def device_us(fn, reps: int = 20):
+    """Device time per call of `fn()` in us (`device_profile`)."""
+    return device_profile(fn, reps)[0]
+
+
+def one_kernel(name: str, fn, reps: int = 5) -> float:
+    """`fn()`'s device us; raises unless one call makes exactly one device
+    kernel, as the profiler counts them."""
+    us, kernels = device_profile(fn, reps)
+    if kernels != 1:
+        raise AssertionError(f"{name}: {kernels} device kernels a call "
+                             f"(None: the profiler recorded none), "
+                             f"expected 1")
+    return us
 
 
 def nvidia_smi() -> str:
@@ -340,7 +372,40 @@ def _probe_line(r: dict) -> str:
             f"{r['bound_ms']:.6f} ({r['bound_by']})")
 
 
+def _scan_agrees(name: str, got, want, op: str) -> str:
+    """float64 add within SCAN_TOL (relative), everything else exactly;
+    raises otherwise."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if got.dtype == torch.float64 and op == "add" and got.numel():
+        err = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+        ok, how = err <= SCAN_TOL, f"rel err {err:.2e} <= {SCAN_TOL:g}"
+    else:
+        ok, how = bool(torch.equal(got, want)), "exact"
+    if not ok:
+        raise AssertionError(f"{name}: {how} fails")
+    return how
+
+
+def _gappy_ids(g, n: int, start_p: float, valid) -> torch.Tensor:
+    """Segment ids as `masked._segments_gappy` leaves them: a valid row
+    starts a group with probability `start_p` (the first valid row
+    always), invalid rows inherit the group before; nondecreasing."""
+    start = (torch.rand(n, generator=g) < start_p) & valid
+    start[int(torch.argmax(valid.to(torch.int8)))] = bool(valid.any())
+    return torch.clamp(torch.cumsum(start.to(torch.int64), 0) - 1, min=0)
+
+
 def _segmented_kernel_checks(res: dict, dev) -> None:
+    """segmented_scan and segment_reduce against their plain versions
+    (float64 add within SCAN_TOL, everything else exactly), one device
+    kernel a call: the scan at 8,388,608 rows; segment_reduce with gappy
+    ids and a mask into as many slots as rows, as q15 calls it; one
+    segment over every tile of 8,388,608 rows; n = 1, a tile and a row
+    either side, all rows invalid, empty ids before, between and after the
+    rows and num_segments far past the last id; float64 sums whose
+    segments span three tiles or more, bit for bit equal over two calls."""
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator().manual_seed(0)
@@ -348,6 +413,7 @@ def _segmented_kernel_checks(res: dict, dev) -> None:
     flags = torch.rand(n, generator=g) < 0.01
     flags[0] = True
     flags = flags.to(dev)
+    rows = []
     for c in (1, 3):
         for dt in (torch.int64, torch.float64):
             if dt == torch.int64:
@@ -356,25 +422,116 @@ def _segmented_kernel_checks(res: dict, dev) -> None:
                 v = torch.rand((n, c), generator=g, dtype=torch.float64)
             v = v.to(dev)
             for op in ("add", "max", "min"):
-                got = ops.segmented_scan(v, flags, op)
-                want = ref.segmented_scan(v, flags, op)
-                torch.cuda.synchronize()
-                if dt == torch.float64 and op == "add":
-                    err = ((got - want).abs() / want.abs().clamp(min=1)).max()
-                    ok = float(err) <= SCAN_TOL
-                    how = f"rel err {float(err):.2e} <= {SCAN_TOL:g}"
-                else:
-                    ok, how = bool(torch.equal(got, want)), "exact"
-                if not ok:
-                    raise AssertionError(
-                        f"segmented_scan N={n} C={c} {dt} {op}: {how} fails")
+                name = f"segmented_scan N={n} C={c} {str(dt)[6:]} {op}"
+                how = _scan_agrees(name, ops.segmented_scan(v, flags, op),
+                                   ref.segmented_scan(v, flags, op), op)
                 ms = cuda_ms(lambda: ops.segmented_scan(v, flags, op), 10)
+                dev_us = one_kernel(name, lambda: ops.segmented_scan(
+                    v, flags, op))
                 plain = cuda_ms(lambda: ref.segmented_scan(v, flags, op), 2, 1)
                 bound = _bound(2 * n * c * 8 + n, n * c)
-                say("kernels", f"segmented_scan N={n} C={c} {str(dt)[6:]} "
-                    f"{op}: {how}; ms={ms:.4f} plain_ms={plain:.3f} "
+                say("kernels", f"{name}: {how}; ms={ms:.4f} (device us "
+                    f"{_us(dev_us)}, one device kernel) plain_ms={plain:.3f} "
                     f"bound_ms={bound[0]:.4f} ({bound[1]})")
             del v
+    # segment_reduce as q15 calls it: 1,048,576 rows, 3% valid, about 100
+    # valid rows a group, as many output slots as rows
+    m = 1_048_576
+    valid = torch.rand(m, generator=g) < 0.03
+    sid = _gappy_ids(g, m, 0.01, valid).to(dev)
+    valid = valid.to(dev)
+    for dt in (torch.float64, torch.int64):
+        v = (torch.rand(m, generator=g, dtype=torch.float64) if dt ==
+             torch.float64 else torch.randint(-10**6, 10**6, (m,),
+                                              generator=g)).to(dev)
+        for op in ("add", "max", "min"):
+            name = (f"segment_reduce N={m} {str(dt)[6:]} {op}, gappy ids, 3% "
+                    f"valid, {m} slots")
+            how = _scan_agrees(name, ops.segment_reduce(v, sid, m, op, valid),
+                               ref.segment_reduce(v, sid, m, op, valid), op)
+            def call():
+                return ops.segment_reduce(v, sid, m, op, valid)
+
+            ms = cuda_ms(call, 20)
+            dev_us = one_kernel(name, call)
+            rows.append({"case": name, "ms": ms, "device_us": dev_us})
+            say("kernels", f"{name}: {how}; ms={ms:.4f} (device us "
+                f"{_us(dev_us)}, one device kernel)")
+    # one segment over every tile
+    v = torch.rand(n, generator=g, dtype=torch.float64).to(dev)
+    vi = torch.randint(-10**6, 10**6, (n,), generator=g).to(dev)
+    one = torch.zeros(n, dtype=torch.bool, device=dev)
+    one[0] = True
+    zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+    for x in (v, vi):
+        for op in ("add", "max", "min"):
+            name = f"one segment of N={n} {str(x.dtype)[6:]} {op}"
+            _scan_agrees(f"segmented_scan {name}",
+                         ops.segmented_scan(x, one, op),
+                         ref.segmented_scan(x, one, op), op)
+            for nseg in (1, 5):
+                _scan_agrees(f"segment_reduce {name} into {nseg} slots",
+                             ops.segment_reduce(x, zeros, nseg, op),
+                             ref.segment_reduce(x, zeros, nseg, op), op)
+            say("kernels", f"segmented_scan and segment_reduce, {name} (no "
+                f"reset after row 0): agree with plain")
+    del vi, one, zeros
+    # float64 sums over segments of 5,000-15,000 rows (three tiles or more)
+    # with resets inside tiles: bit for bit equal over two calls
+    long_start = torch.zeros(n, dtype=torch.bool)
+    long_start[torch.cumsum(torch.randint(5_000, 15_000, (n // 5_000,),
+                                          generator=g), 0)
+               .clamp(max=n - 1)] = True
+    long_start[0] = True
+    long_ids = (torch.cumsum(long_start.to(torch.int64), 0) - 1).to(dev)
+    long_start = long_start.to(dev)
+    nseg = int(long_ids[-1]) + 1
+    for name, call, plain in (
+            ("segmented_scan", lambda: ops.segmented_scan(v, long_start),
+             lambda: ref.segmented_scan(v, long_start)),
+            ("segment_reduce", lambda: ops.segment_reduce(v, long_ids, nseg),
+             lambda: ref.segment_reduce(v, long_ids, nseg))):
+        a, b = call(), call()
+        how = _scan_agrees(f"{name} float64 add, segments over 3+ tiles",
+                           a, plain(), "add")
+        if not _bitwise_equal(a, b):
+            raise AssertionError(f"{name} float64 add: two calls differ")
+        say("kernels", f"{name} N={n} float64 add, {nseg} segments of "
+            f"5,000-15,000 rows: {how}; bit for bit equal over two calls")
+    del v, long_start, long_ids
+    # small and ragged edges
+    for size in (1, 2047, 2048, 2049, 300_007):
+        for dt in (torch.int64, torch.float64):
+            x = torch.randint(-100, 100, (size,), generator=g).to(dt).to(dev)
+            gaps = torch.cumsum(torch.randint(0, 3, (size,), generator=g), 0)
+            cases = {
+                "leading, interior, trailing empty ids":
+                    (gaps + 2, torch.rand(size, generator=g) < 0.8, 8),
+                "num_segments far past the last id":
+                    (gaps, torch.rand(size, generator=g) < 0.8, 100_000),
+                "all rows invalid":
+                    (gaps, torch.zeros(size, dtype=torch.bool), 5)}
+            for label, (ids, ok_rows, extra) in cases.items():
+                ids, ok_rows = ids.to(dev), ok_rows.to(dev)
+                slots = int(ids[-1]) + extra
+                for op in ("add", "max", "min"):
+                    # small integers: float sums are exact in any order
+                    got = ops.segment_reduce(x, ids, slots, op, ok_rows)
+                    want = ref.segment_reduce(x, ids, slots, op, ok_rows)
+                    if not _bitwise_equal(got, want):
+                        raise AssertionError(
+                            f"segment_reduce N={size} {str(dt)[6:]} {op} "
+                            f"{label}: differs from plain")
+            f = (torch.rand(size, generator=g) < 0.1).to(dev)
+            for op in ("add", "max", "min"):
+                if not _bitwise_equal(ops.segmented_scan(x, f, op),
+                                      ref.segmented_scan(x, f, op)):
+                    raise AssertionError(f"segmented_scan N={size} "
+                                         f"{str(dt)[6:]} {op} differs")
+        say("kernels", f"segment_reduce N={size} with leading, interior and "
+            f"trailing empty ids, num_segments far past the last id, all "
+            f"rows invalid; segmented_scan N={size}: bitwise equal to plain")
+    res["segment_reduce_checks"] = rows
     torch.cuda.empty_cache()
 
 
@@ -1031,44 +1188,66 @@ def phase_timing(res: dict, plans: dict) -> list:
     vm = torch.where(valid, v, identity_for(op, v.dtype))
     reduce = {"add": "sum", "max": "max", "min": "min"}[op]
     torch.cuda.synchronize()
-    lib = cuda_ms(lambda: torch.segment_reduce(vm, reduce, lengths=lengths,
-                                               unsafe=True), 50)
-    kernels.append(_entry(
+    def library():
+        return torch.segment_reduce(vm, reduce, lengths=lengths, unsafe=True)
+
+    def kernel():
+        return ops.segment_reduce(v, sid, nseg, op=op, valid=valid)
+
+    entry = _entry(
         "segmented_scan", res["launches"], errs["segmented_scan"],
-        cuda_ms(lambda: ops.segment_reduce(v, sid, nseg, op=op, valid=valid), 50),
+        cuda_ms(kernel, 50),
         cuda_ms(lambda: ref.segment_reduce(v, sid, nseg, op=op, valid=valid), 50),
-        bytes_, nrow, lib,
-        f"segment_reduce {op}, N={nrow} rows, {nseg} segments, {v.dtype}"))
+        bytes_, nrow, cuda_ms(library, 50),
+        f"segment_reduce {op}, N={nrow} rows, {nseg} segments, {v.dtype}")
+    entry["device_us"], entry["kernels_per_call"] = device_profile(kernel)
+    entry["library_device_us"] = device_us(library)
+    kernels.append(entry)
     # span_compact at q15's first interior boundary (no single PyTorch call
     # packs with the clamped tail and the count: library_ms is null)
-    (cols, valid, cap), _ = seen["span_compact"]
-    count = int(valid.sum())
-    kernels.append(_entry(
+    (cols, cvalid, cap), _ = seen["span_compact"]
+    count = int(cvalid.sum())
+
+    def kernel():
+        return ops.span_compact(cols, cvalid, cap)
+
+    entry = _entry(
         "span_compact", res["launches"], errs["span_compact"],
-        cuda_ms(lambda: ops.span_compact(cols, valid, cap), 50),
-        cuda_ms(lambda: ref.span_compact(cols, valid, cap), 20),
-        _compact_bytes(cols, valid.shape[0], cap, count), valid.shape[0],
-        None, f"N={valid.shape[0]} mask, K={len(cols)} columns "
+        cuda_ms(kernel, 50),
+        cuda_ms(lambda: ref.span_compact(cols, cvalid, cap), 20),
+        _compact_bytes(cols, cvalid.shape[0], cap, count), cvalid.shape[0],
+        None, f"N={cvalid.shape[0]} mask, K={len(cols)} columns "
         f"({', '.join(str(c.dtype)[6:] for c in cols)}), C={cap}, count "
-        f"{count}"))
+        f"{count}")
+    entry["device_us"], entry["kernels_per_call"] = device_profile(kernel)
+    kernels.append(entry)
     # span_segment at q15's first in-span Reduce
-    (keys, valid), _ = seen["span_segment"]
-    groups = int(ref.span_segment(keys, valid)[2])
-    kernels.append(_entry(
+    (keys, svalid), _ = seen["span_segment"]
+    groups = int(ref.span_segment(keys, svalid)[2])
+
+    def kernel():
+        return ops.span_segment(keys, svalid)
+
+    entry = _entry(
         "span_segment", res["launches"], errs["span_segment"],
-        cuda_ms(lambda: ops.span_segment(keys, valid), 50),
-        cuda_ms(lambda: ref.span_segment(keys, valid), 20),
-        _segment_bytes(keys, valid.shape[0]),
-        valid.shape[0] * max(len(keys), 1), None,
-        f"N={valid.shape[0]} rows, {len(keys)} key(s) "
-        f"({', '.join(str(k.dtype)[6:] for k in keys)}), {groups} groups"))
+        cuda_ms(kernel, 50),
+        cuda_ms(lambda: ref.span_segment(keys, svalid), 20),
+        _segment_bytes(keys, svalid.shape[0]),
+        svalid.shape[0] * max(len(keys), 1), None,
+        f"N={svalid.shape[0]} rows, {len(keys)} key(s) "
+        f"({', '.join(str(k.dtype)[6:] for k in keys)}), {groups} groups")
+    entry["device_us"], entry["kernels_per_call"] = device_profile(kernel)
+    kernels.append(entry)
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         say("timing", f"{k['name']} at q15's shape ({k.pop('shape')}): "
-            f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
-            f"library_ms={lib} bound_ms={k['bound_ms']:.4f} "
-            f"({k['bound_by']}); launches on the mega route {k['launches']}; "
-            f"max_abs_err over the path's calls {k['max_abs_err']:g}")
+            f"ms={k['ms']:.4f} (device us {_us(k['device_us'])}"
+            + (f", {k['kernels_per_call']} device kernel(s) a call"
+               if "kernels_per_call" in k else "")
+            + f") plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}); launches on "
+            f"the mega route {k['launches']}; max_abs_err over the path's "
+            f"calls {k['max_abs_err']:g}")
     return kernels
 
 
@@ -1092,9 +1271,9 @@ def _segment_bytes(keys, n: int) -> int:
 def _span_kernel_checks(res: dict, dev) -> None:
     """The span kernels against their plain versions, bitwise on every
     slot, at q15's lineitem capacity (8,388,608 rows): span_compact for K =
-    1, 3, 6 and 12 mixed int64/float64 columns (12: more than one scatter
-    launch's 8) into q15's interior capacity with the valid count below
-    it, above it and 0; span_segment on one int64 key and on mixed
+    1, 3, 6, 12, 17 and 32 mixed int64/float64 columns into q15's interior
+    capacity with the valid count below it, above it and 0, one device
+    kernel a call (the profiler's count); span_segment on one int64 key and on mixed
     int64/float64 keys, packed, gappy and empty, and on 10 keys of which
     only the last two tell slots apart (the kernel's flag pass)."""
     from repro_torch.kernels import ops, ref
@@ -1103,13 +1282,13 @@ def _span_kernel_checks(res: dict, dev) -> None:
     n, cap = SPAN_ROWS, 1_048_576
     cols = [torch.randint(-2**62, 2**62, (n,), generator=g) if j % 2 == 0
             else torch.randn(n, generator=g, dtype=torch.float64)
-            for j in range(12)]
+            for j in range(32)]
     cols = [c.to(dev) for c in cols]
     u = torch.rand(n, generator=g)
     masks = {"count < C": u < 0.06, "count > C": u < 0.3,
              "count 0": torch.zeros(n, dtype=torch.bool)}
     rows = []
-    for k in (1, 3, 6, 12):
+    for k in (1, 3, 6, 12, 17, 32):
         for label, m in masks.items():
             valid = m.to(dev)
             got = ops.span_compact(cols[:k], valid, cap)
@@ -1122,15 +1301,18 @@ def _span_kernel_checks(res: dict, dev) -> None:
                                      f"{label}: differs from plain")
             count = int(want[2])
             ms = cuda_ms(lambda: ops.span_compact(cols[:k], valid, cap), 20)
+            dev_us = one_kernel(f"span_compact K={k} {label}",
+                                lambda: ops.span_compact(cols[:k], valid, cap))
             plain = cuda_ms(lambda: ref.span_compact(cols[:k], valid, cap), 5)
             bound = _bound(_compact_bytes(cols[:k], n, cap, count), n)
             rows.append({"kernel": "span_compact", "k": k, "case": label,
-                         "count": count, "ms": ms, "plain_ms": plain,
-                         "bound_ms": bound[0], "bound_by": bound[1]})
+                         "count": count, "ms": ms, "device_us": dev_us,
+                         "plain_ms": plain, "bound_ms": bound[0],
+                         "bound_by": bound[1]})
             say("kernels", f"span_compact N={n} K={k} (int64/float64) C={cap} "
                 f"{label} (count {count}): bitwise equal on every slot; "
-                f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bound[0]:.4f} "
-                f"({bound[1]})")
+                f"ms={ms:.4f} (device us {_us(dev_us)}, one device kernel) "
+                f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
     a = torch.sort(torch.randint(0, n // 100, (n,), generator=g)).values
     b = torch.tensor([0.0, -0.0, 1.5, 2.5], dtype=torch.float64)[
         torch.randint(0, 4, (n,), generator=g)]
@@ -1794,7 +1976,8 @@ def main(argv) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     # `--only probe,flash,...`: the build and the named kernel checks
-    # alone, for a short run while a kernel changes; no result line
+    # alone, for a short run while a kernel changes; `dataflow` adds the
+    # flows, timing and profile phases (no serving); no result line
     only = None
     if len(argv) == 2 and argv[0] == "--only":
         only = set(argv[1].split(","))
@@ -1815,11 +1998,21 @@ def main(argv) -> int:
         phase_build(res)
         phase = "kernels"
         phase_kernels(res, dev, only)
+        if only is not None and "dataflow" in only:
+            phase = "flows"
+            plans = phase_flows(res, dev)
+            phase = "timing"
+            res["kernels"] = phase_timing(res, plans)
+            phase = "profile"
+            phase_profile(res, plans)
+            del plans
         if only is not None:
             say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
             os.makedirs(OUT_DIR, exist_ok=True)
             with open(os.path.join(OUT_DIR, "chip_smoke_only.json"), "w") as f:
                 json.dump(res, f, indent=1, default=str)
+            if "kernels" in res:
+                print(json.dumps({"kernels": res["kernels"]}), flush=True)
             return 0
         phase = "flows"
         plans = phase_flows(res, dev)

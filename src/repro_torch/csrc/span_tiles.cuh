@@ -1,18 +1,22 @@
-// span_tiles.cuh — the chunk-offset scheme shared by span_compact.cu and
-// span_segment.cu.
+// span_tiles.cuh — the chunk-offset scheme of span_segment.cu.
 //
-// Both kernels turn a per-row 0/1 flag (a valid row; a segment start) into
-// its running rank over the whole array.  Hopper runs blocks in no order,
-// so the rank is built in three launches over 256-row chunks, one chunk
-// per warp, eight warps (2,048 rows) a block:
+// The kernel turns a per-row 0/1 flag (a segment start) into its running
+// rank over the whole array.  Hopper runs blocks in no order, so the rank
+// is built in three launches over 256-row chunks, one chunk per warp,
+// eight warps (2,048 rows) a block:
 //
-//   1. a per-chunk count of the flags (each kernel's own `*_count`), and
-//      per block the sum of its chunks' counts (`chunk_counts`);
+//   1. a per-chunk count of the flags (`segment_count`), and per block the
+//      sum of its chunks' counts (`chunk_counts`);
 //   2. `block_offsets` — one block scans the block counts into each
 //      block's exclusive offset and writes the grand total;
 //   3. each warp re-reads its chunk in 8 rounds of 32 rows and ranks every
 //      flagged row with a ballot, on top of its block's offset plus the
 //      counts of the block's earlier chunks (`chunk_offset`).
+//
+// Who uses what: span_segment.cu uses all of it (the sizes, chunk_counts,
+// chunk_offset, block_offsets through launch_offsets).  span_compact.cu
+// used it until it became one single-pass launch with decoupled look-back
+// of its own; it includes nothing from here now.
 //
 // Scratch (int64): chunk counts [chunks], block counts [blocks], block
 // offsets [blocks].  A single block scans, so it scans per block, not per

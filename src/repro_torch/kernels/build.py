@@ -119,11 +119,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.restype = i
     elif name == "segmented_scan":
         fn = lib.repro_segmented_scan
-        fn.argtypes = [i, i, p, p, ll, i, p, p, p, ll, p, p, p, p]
+        fn.argtypes = [i, i, i, p, p, p, p, ll, ll, p, p, ll, p]
         fn.restype = i
-        tiles = lib.repro_segmented_scan_tiles
-        tiles.argtypes = [ll]
-        tiles.restype = ll
+        _declare_layout(lib.repro_segmented_scan_layout)
     elif name == "flash_attention":
         fn = lib.repro_flash_attention
         fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, ctypes.c_float,
@@ -131,11 +129,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.restype = i
     elif name == "span_compact":
         fn = lib.repro_span_compact
-        fn.argtypes = [p, ll, i, p, p, p, p, ll, p, p, p, p]
+        fn.argtypes = [p, ll, i, p, ll, p, p, p, ll, p, p]
         fn.restype = i
-        scratch = lib.repro_span_scratch
-        scratch.argtypes = [ll]
-        scratch.restype = ll
+        _declare_layout(lib.repro_span_compact_layout)
     elif name == "span_segment":
         fn = lib.repro_span_segment
         fn.argtypes = [i, p, p, p, ll, p, p, p, p, p, p]
@@ -153,6 +149,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.restype = i
     else:  # pragma: no cover - SOURCES and this table move together
         raise KeyError(name)
+
+
+def _declare_layout(fn) -> None:
+    """A look-back kernel's layout call: fills three int64 words."""
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = None
 
 
 def check(err: int, what: str) -> None:

@@ -20,10 +20,11 @@ masked or looped over), so no block size is chosen and nothing is padded.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
-from ..core.scans import identity_for, scan_identity
+from ..core.scans import scan_identity
 from ..core.record import as_tensor
 from ..core.udf import SegmentOps, mean_of
 from . import build, ref
@@ -79,29 +80,73 @@ def _stream(device) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Scratch of the look-back kernels
+# ---------------------------------------------------------------------------
+_scratch_bufs: dict = {}  # (kernel, device, stream) -> uint8 tensor
+
+
+def _scratch(name: str, dev: int, stream: int, nbytes: int) -> torch.Tensor:
+    """The scratch of kernel `name` on one device and stream, at least
+    `nbytes` long.  Zeroed once when made (or grown, to twice its size at
+    least) and then kept: the kernels keep it valid between calls
+    themselves (tile status words carry an epoch that each launch advances
+    on the card), so a call allocates and clears nothing.  Keyed by stream
+    because two calls in flight must not share it."""
+    key = (name, dev, stream)
+    buf = _scratch_bufs.get(key)
+    if buf is None or buf.numel() < nbytes:
+        if buf is not None:
+            nbytes = max(nbytes, 2 * buf.numel())
+        buf = torch.zeros(nbytes, dtype=torch.uint8,
+                          device=torch.device("cuda", dev))
+        _scratch_bufs[key] = buf
+    return buf
+
+
+def _lookback_kernel(name: str) -> tuple:
+    """(ctypes entry, rows a tile, fixed scratch bytes, scratch bytes a
+    tile) of a look-back kernel, from its library's layout call."""
+    lib = build.library(name)
+    lay = (ctypes.c_longlong * 3)()
+    getattr(lib, f"repro_{name}_layout")(lay)
+    return (getattr(lib, f"repro_{name}"), *lay)
+
+
+# ---------------------------------------------------------------------------
 # Segmented scan / segment reduce
 # ---------------------------------------------------------------------------
-def _launch_scan(v: torch.Tensor, flags: torch.Tensor, op: str,
-                 out_scan=None, seg_ids=None, out_reduce=None) -> None:
-    """One call of the scan kernel on [N, C] contiguous values."""
+_scan = None  # _lookback_kernel("segmented_scan"), once built
+
+
+def _launch_scan(v: torch.Tensor, op: str, out: torch.Tensor, flags=None,
+                 seg_ids=None, valid=None) -> None:
+    """One launch of `csrc/segmented_scan.cu` on [N >= 1, C] contiguous
+    values: the scan into `out` given `flags`, or given `seg_ids` (and
+    `valid`) each segment's total into `out` [num_segments, C].  At a
+    Reduce's size the call's host time is on the clock, so the host path
+    stays lean: the ctypes function resolved once, the raw stream, the
+    scratch cached."""
+    global _scan
+    if _scan is None:
+        _scan = _lookback_kernel("segmented_scan")
+    fn, tile, fixed, per_tile = _scan
     n, c = v.shape
-    if c > _MAX_COLS:
-        raise ValueError(f"segmented_scan takes at most {_MAX_COLS} columns, "
-                         f"got {c}")
+    if not 1 <= c <= _MAX_COLS:
+        raise ValueError(f"segmented_scan takes at least 1 and at most "
+                         f"{_MAX_COLS} columns, got {c}")
     code = _dtype_code(v)
-    lib = build.library("segmented_scan")
-    tiles = lib.repro_segmented_scan_tiles(n)
-    agg = torch.empty((tiles, c), dtype=v.dtype, device=v.device)
-    carry = torch.empty_like(agg)
-    agg_f = torch.empty(tiles, dtype=torch.uint8, device=v.device)
-    err = lib.repro_segmented_scan(
-        code, _OPS[op], v.data_ptr(), flags.data_ptr(), n, c,
-        None if out_scan is None else out_scan.data_ptr(),
-        None if seg_ids is None else seg_ids.data_ptr(),
-        None if out_reduce is None else out_reduce.data_ptr(),
-        0 if out_reduce is None else out_reduce.shape[0],
-        agg.data_ptr(), agg_f.data_ptr(), carry.data_ptr(), _stream(v.device))
-    build.check(err, "segmented_scan")
+    dev = v.get_device()
+    stream = _stream(dev)
+    buf = _scratch("segmented_scan", dev, stream,
+                   fixed + per_tile * -(-n // tile))
+    err = fn(code, _OPS[op], c, v.data_ptr(),
+             None if flags is None else flags.data_ptr(),
+             None if seg_ids is None else seg_ids.data_ptr(),
+             None if valid is None else valid.data_ptr(), n,
+             0 if seg_ids is None else out.shape[0], out.data_ptr(),
+             buf.data_ptr(), buf.numel(), stream)
+    if err:
+        build.check(err, "segmented_scan")
     LAUNCHES["segmented_scan"] += 1
 
 
@@ -117,22 +162,23 @@ def segmented_scan(values: torch.Tensor, flags: torch.Tensor,
     v = values[:, None] if squeeze else values
     if flags.shape != (v.shape[0],):
         raise ValueError(f"flags shape {tuple(flags.shape)} != ({v.shape[0]},)")
-    f = flags.to(torch.bool).contiguous()
     out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if v.shape[0]:
-        _launch_scan(v.contiguous(), f, op, out_scan=out)
+        _launch_scan(v.contiguous(), op, out,
+                     flags=flags.to(torch.bool).contiguous())
     return out[:, 0] if squeeze else out
 
 
 def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
                    num_segments: int, op: str = "add",
                    valid=None) -> torch.Tensor:
-    """Per-segment reduction over key-sorted rows: one scan launch that
-    writes only each segment's last row, to its segment id.
+    """Per-segment reduction over key-sorted rows: one launch that
+    segments the rows by their ids, masks the invalid ones, writes each
+    segment's last row to its id and fills the empty ids.
 
-    Rows must be sorted by `segment_ids` (the masked executor guarantees
-    this).  Invalid rows contribute `identity_for` (0 or the dtype's finite
-    min/max); empty segments hold `scan_identity`."""
+    Segment ids must be nondecreasing over all rows (the masked executor
+    guarantees this).  Invalid rows contribute `identity_for` (0 or the
+    dtype's finite min/max); empty segments hold `scan_identity`."""
     if op not in _OPS:
         raise ValueError(op)
     tensors = (values, segment_ids) + (() if valid is None else (valid,))
@@ -140,17 +186,21 @@ def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
         return ref.segment_reduce(values, segment_ids, num_segments, op, valid)
     squeeze = values.ndim == 1
     v = values[:, None] if squeeze else values
-    if valid is not None:
-        v = torch.where(valid[:, None], v, identity_for(op, v.dtype))
-    sid = segment_ids.to(torch.int64).contiguous()
     n = v.shape[0]
-    flags = torch.ones(n, dtype=torch.bool, device=v.device)
-    flags[1:] = sid[1:] != sid[:-1]
-    out = torch.full((num_segments, v.shape[1]),
-                     scan_identity(op, v.dtype), dtype=v.dtype,
-                     device=v.device)
-    if n:
-        _launch_scan(v.contiguous(), flags, op, seg_ids=sid, out_reduce=out)
+    for name, t in (("segment_ids", segment_ids), ("valid", valid)):
+        if t is not None and t.shape != (n,):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != ({n},)")
+    if n == 0:  # no row: every segment is empty
+        out = torch.full((num_segments, v.shape[1]),
+                         scan_identity(op, v.dtype), dtype=v.dtype,
+                         device=v.device)
+    else:
+        out = torch.empty((num_segments, v.shape[1]), dtype=v.dtype,
+                          device=v.device)
+        _launch_scan(v.contiguous(), op, out,
+                     seg_ids=segment_ids.to(torch.int64).contiguous(),
+                     valid=None if valid is None
+                     else valid.to(torch.bool).contiguous())
     return out[:, 0] if squeeze else out
 
 
@@ -392,42 +442,62 @@ def _span_check(name: str, tensors, valid: torch.Tensor) -> None:
                              f"mask of {valid.shape[0]} rows")
 
 
+_compact = None  # _lookback_kernel("span_compact"), once built
+_tls = threading.local()  # a reused column-descriptor buffer per thread
+
+
+def _descriptors(k: int) -> "ctypes.Array":
+    """This thread's descriptor buffer (four int64 words a column), grown
+    when needed and otherwise reused."""
+    buf = getattr(_tls, "desc", None)
+    if buf is None or len(buf) < 4 * k:
+        buf = (ctypes.c_longlong * max(4 * k, 128))()
+        _tls.desc = buf
+    return buf
+
+
 def span_compact(columns, valid: torch.Tensor, capacity: int):
     """Stable valids-first pack of `columns` and `valid` into `capacity`
     slots: `(columns', valid', count)`, bit for bit `MaskedBatch.compact`
     (slots past the count hold the last input row) plus the
     pre-compaction valid count (int64, 0-d).  One launch of
-    `csrc/span_compact.cu` on the card (its scatter runs once per group of
-    8 columns); columns of any type and number move as raw words."""
+    `csrc/span_compact.cu` on the card for up to 32 columns (one per group
+    of 32 past that); columns of any type move as raw words."""
+    global _compact
     columns = list(columns)
     if not _on_cuda(valid, *columns):
         return ref.span_compact(columns, valid, capacity)
     _span_check("span_compact", columns, valid)
     if capacity < 1:
         raise ValueError(f"span_compact capacity {capacity} < 1")
-    dev, n = valid.device, valid.shape[0]
+    if _compact is None:
+        _compact = _lookback_kernel("span_compact")
+    fn, tile, fixed, per_tile = _compact
+    dev, n = valid.get_device(), valid.shape[0]
     valid = valid.contiguous()
-    ins, outs, wsz, wpr = [], [], [], []
-    for c in columns:
+    desc = _descriptors(len(columns))
+    ins, outs = [], []
+    for j, c in enumerate(columns):
         c = c.contiguous()
         row = c.element_size() * (c.numel() // n)
-        w = next(w for w in (8, 4, 2, 1)
-                 if row % w == 0 and c.data_ptr() % w == 0)
+        ptr = c.data_ptr()
+        w = next(w for w in (8, 4, 2, 1) if row % w == 0 and ptr % w == 0)
+        o = torch.empty((capacity,) + tuple(c.shape[1:]), dtype=c.dtype,
+                        device=c.device)
+        desc[4 * j:4 * j + 4] = (ptr, o.data_ptr(), w, row // w)
         ins.append(c)
-        outs.append(torch.empty((capacity,) + tuple(c.shape[1:]),
-                                dtype=c.dtype, device=dev))
-        wsz.append(w)
-        wpr.append(row // w)
-    valid_out = torch.empty(capacity, dtype=torch.bool, device=dev)
-    count = torch.empty((), dtype=torch.int64, device=dev)
-    lib = build.library("span_compact")
-    scratch = torch.empty(lib.repro_span_scratch(n), dtype=torch.int64,
-                          device=dev)
-    err = lib.repro_span_compact(
-        valid.data_ptr(), n, len(ins), _ptrs(ins), _ptrs(outs),
-        _ints(wsz), _ints(wpr), capacity, valid_out.data_ptr(),
-        scratch.data_ptr(), count.data_ptr(), _stream(dev))
-    build.check(err, "span_compact")
+        outs.append(o)
+    valid_out = torch.empty(capacity, dtype=torch.bool, device=valid.device)
+    count = torch.empty((), dtype=torch.int64, device=valid.device)
+    stream = _stream(dev)
+    buf = _scratch("span_compact", dev, stream,
+                   fixed + per_tile * -(-n // tile))
+    src = _scratch("span_compact_src", dev, stream, 8 * capacity)
+    err = fn(valid.data_ptr(), n, len(columns), desc, capacity,
+             valid_out.data_ptr(), count.data_ptr(), buf.data_ptr(),
+             buf.numel(), src.data_ptr(), stream)
+    if err:
+        build.check(err, "span_compact")
     LAUNCHES["span_compact"] += 1
     return outs, valid_out, count
 

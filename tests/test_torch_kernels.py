@@ -101,14 +101,26 @@ def test_plain_segmented_scan_matches_reference(op, n, c):
         tops.segmented_scan(_t(v[:, 0]), _t(flags), op).numpy(), got[:, 0])
 
 
+# (rows, ids, valid): gappy sorted ids with empty ids between and after
+# them; empty ids before them too; every row invalid; a single row
+SEGMENT_CASES = {
+    "gappy": lambda rng: (600, np.sort(rng.integers(0, 60, 600)), 0.8),
+    "leading_and_trailing_empty": lambda rng: (
+        600, np.sort(rng.integers(7, 50, 600)), 0.8),
+    "all_invalid": lambda rng: (600, np.sort(rng.integers(0, 60, 600)), 0.0),
+    "single_row": lambda rng: (1, np.array([5]), 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
 @pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("dtype", [np.int64, np.float64])
-def test_plain_segment_reduce_matches_reference(op, dtype):
+def test_plain_segment_reduce_matches_reference(op, dtype, case):
     rng = np.random.default_rng(3)
-    n, nseg = 600, 64
-    sid = np.sort(rng.integers(0, nseg - 4, n))
+    nseg = 64
+    n, sid, p_valid = SEGMENT_CASES[case](rng)
     v = rng.integers(-100, 100, n).astype(dtype)
-    valid = rng.random(n) < 0.8
+    valid = rng.random(n) < p_valid
     got = tref.segment_reduce(_t(v), _t(sid), nseg, op, valid=_t(valid))
     ref = jref.segment_reduce(jnp.asarray(v), jnp.asarray(sid), nseg, op,
                               valid=jnp.asarray(valid))

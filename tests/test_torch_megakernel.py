@@ -354,7 +354,7 @@ def test_interior_compaction_capacity_is_route_agnostic():
 
 
 # ---------------------------------------------------------------------------
-# A live set wider than one scatter launch's 8 columns
+# A live set wider than 8 columns (the span kernels' earlier launch width)
 # ---------------------------------------------------------------------------
 WIDE = 12
 
