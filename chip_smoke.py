@@ -27,8 +27,9 @@ more lines each:
            ids before, between and after the rows, and float64 sums over
            segments of three tiles or more bit for bit equal over two
            calls; the span kernels bitwise on every slot at 8,388,608 rows
-           (span_compact for up to 32 columns); segmented_scan and
-           span_compact one device kernel a call, as the profiler counts;
+           (span_compact for up to 32 columns, span_segment for up to 33
+           keys); segmented_scan, span_compact and span_segment (up to 32
+           keys) one device kernel a call, as the profiler counts;
            flash
            attention at the reference test's seven shapes and the served
            shapes (as the prefill lays them out, [B,T,H,D] memory), timed
@@ -51,7 +52,8 @@ more lines each:
            against the kernel's plain version on its own inputs; the routes
            and the CUDA launches per kernel and route
   timing   warm run / run_device of q15 on both routes, taken in turns;
-           each kernel at the shapes q15 gives it: time, the profiler's
+           each kernel at the shapes q15 gives it (span_segment at both of
+           q15's calls and at clickstream's largest): time, the profiler's
            device time and device kernels a call, plain time, library-call
            time and bound
   profile  torch.profiler over a warm q15 run_device on each route: device
@@ -134,14 +136,16 @@ KERNEL_SOURCES = {
 DATA_KERNELS = ("sorted_probe", "segmented_scan", "span_compact",
                 "span_segment")
 SPAN_KERNELS = ("span_compact", "span_segment")
-# (the parent tree's tile_reduce / tile_carries / tile_apply and
-# compact_count / compact_scatter stay on the list, so the profile phase
-# tallies them when this script measures that tree)
+# (earlier trees' tile_reduce / tile_carries / tile_apply, compact_count /
+# compact_scatter and segment_count / block_offsets / segment_write stay on
+# the list, so the profile phase tallies them when this script measures
+# such a tree)
 REPO_KERNELS = ("probe_kernel", "segscan_lookback", "compact_lookback",
-                "tile_reduce", "tile_carries", "tile_apply",
-                "compact_count", "compact_scatter", "block_offsets",
-                "segment_count", "segment_write", "flash_bf16", "flash_f32",
-                "wkv6_kernel", "linear_scan_kernel")
+                "segment_lookback", "key_differs", "tile_reduce",
+                "tile_carries", "tile_apply", "compact_count",
+                "compact_scatter", "block_offsets", "segment_count",
+                "segment_write", "flash_bf16", "flash_f32", "wkv6_kernel",
+                "linear_scan_kernel")
 # the routes the default span budget gives at these sizes
 EXPECTED_ROUTES = {"q15": (("mega", 0, 4),), "q7": (("mega", 0, 7),),
                    "clickstream": (("mega", 0, 4),), "textmining": None}
@@ -921,6 +925,7 @@ class Checker:
     def __init__(self):
         self.calls: list = []        # one dict per wrapper call
         self.first: dict = {}        # kernel wrapper -> (args, kwargs)
+        self.segments: dict = {}     # rows -> span_segment's (args, kwargs)
         self.max_err = {k: 0.0 for k in DATA_KERNELS}
         self.failures: list = []
 
@@ -947,6 +952,8 @@ class Checker:
         def call(*a, **k):
             got = real(*a, **k)
             self.first.setdefault(name, (a, k))
+            if name == "span_segment":
+                self.segments.setdefault(int(a[1].shape[0]), (a, k))
             if name in SPAN_KERNELS:
                 self._check_span(name, a, got, plain(*a, **k))
             else:
@@ -1085,6 +1092,8 @@ def phase_flows(res: dict, dev) -> dict:
                 f"against its plain version): {chk.summary() or 'none'}")
             if name == "q15" and route == "mega":
                 res["q15_first_calls"] = chk.first
+            if route == "mega" and chk.segments:
+                res.setdefault("segment_calls", {})[name] = chk.segments
         if rows["mega"] != rows["composed"]:
             raise AssertionError(f"{name}: the mega route's rows differ from "
                                  f"the composed route's")
@@ -1221,23 +1230,35 @@ def phase_timing(res: dict, plans: dict) -> list:
         f"{count}")
     entry["device_us"], entry["kernels_per_call"] = device_profile(kernel)
     kernels.append(entry)
-    # span_segment at q15's first in-span Reduce
-    (keys, svalid), _ = seen["span_segment"]
-    groups = int(ref.span_segment(keys, svalid)[2])
-
-    def kernel():
-        return ops.span_segment(keys, svalid)
-
+    # span_segment at q15's first in-span Reduce (the kernels line's row),
+    # then each call of the main path timed alike: both of q15's and
+    # clickstream's largest
+    calls = res.pop("segment_calls")
+    shapes = [("q15", n) for n in sorted(calls["q15"], reverse=True)]
+    shapes.append(("clickstream", max(calls["clickstream"])))
+    rows = [_segment_times(flow, *calls[flow][n][0]) for flow, n in shapes]
+    (keys, svalid), _ = calls["q15"][shapes[0][1]]
+    first = rows[0]
     entry = _entry(
-        "span_segment", res["launches"], errs["span_segment"],
-        cuda_ms(kernel, 50),
-        cuda_ms(lambda: ref.span_segment(keys, svalid), 20),
-        _segment_bytes(keys, svalid.shape[0]),
+        "span_segment", res["launches"], errs["span_segment"], first["ms"],
+        first["plain_ms"], _segment_bytes(keys, svalid.shape[0],
+                                          first["valid"]),
         svalid.shape[0] * max(len(keys), 1), None,
-        f"N={svalid.shape[0]} rows, {len(keys)} key(s) "
-        f"({', '.join(str(k.dtype)[6:] for k in keys)}), {groups} groups")
-    entry["device_us"], entry["kernels_per_call"] = device_profile(kernel)
+        f"N={svalid.shape[0]} rows, {first['valid']} valid, {len(keys)} "
+        f"key(s) ({', '.join(str(k.dtype)[6:] for k in keys)}), "
+        f"{first['groups']} groups")
+    entry.update(device_us=first["device_us"],
+                 kernels_per_call=first["kernels_per_call"],
+                 valid=first["valid"], calls=rows)
     kernels.append(entry)
+    for r in rows:
+        say("timing", f"span_segment at {r['flow']}'s call (N={r['n']} rows, "
+            f"{r['valid']} valid, {r['keys']} key(s), {r['groups']} groups): "
+            f"ms={r['ms']:.4f} (device us {_us(r['device_us'])}, "
+            f"{r['kernels_per_call']} device kernel(s) a call) plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}; {r['bound_all_keys_ms']:.4f} counting every "
+            f"slot's key)")
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         say("timing", f"{k['name']} at q15's shape ({k.pop('shape')}): "
@@ -1260,12 +1281,37 @@ def _compact_bytes(cols, n: int, cap: int, count: int) -> int:
     return n + moved * row + cap * (row + 1) + 8
 
 
-def _segment_bytes(keys, n: int) -> int:
-    """span_segment's least traffic: the keys (each distinct tensor once)
-    and the mask read once, seg (int64) and is_start written once, and the
+def _segment_bytes(keys, n: int, valid: int) -> int:
+    """span_segment's least traffic: the mask read once, the keys (each
+    distinct tensor once) of the `valid` valid rows only (an invalid slot's
+    flag does not depend on its keys), seg (int64) and is_start written
+    once, and the count.  With `valid` = n: every slot's key, the looser
     count."""
     distinct = {k.data_ptr(): k for k in keys}.values()
-    return n + sum(k.element_size() * n for k in distinct) + 8 * n + n + 8
+    return n + sum(k.element_size() for k in distinct) * valid + 8 * n + n + 8
+
+
+def _segment_times(flow: str, keys, valid) -> dict:
+    """span_segment on one call's inputs: event ms, the profiler's device us
+    and device kernels a call, the plain version's ms, and the bound (keys
+    of valid rows only; beside it the bound counting every slot's key)."""
+    from repro_torch.kernels import ops, ref
+
+    n, nvalid = valid.shape[0], int(valid.sum())
+    groups = int(ref.span_segment(keys, valid)[2])
+
+    def kernel():
+        return ops.span_segment(keys, valid)
+
+    us, per_call = device_profile(kernel)
+    bound = _bound(_segment_bytes(keys, n, nvalid), n * max(len(keys), 1))
+    return {"flow": flow, "n": n, "valid": nvalid, "keys": len(keys),
+            "groups": groups, "ms": cuda_ms(kernel, 50),
+            "device_us": us, "kernels_per_call": per_call,
+            "plain_ms": cuda_ms(lambda: ref.span_segment(keys, valid), 20),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_all_keys_ms": _bound(_segment_bytes(keys, n, n),
+                                        n * max(len(keys), 1))[0]}
 
 
 def _span_kernel_checks(res: dict, dev) -> None:
@@ -1274,8 +1320,10 @@ def _span_kernel_checks(res: dict, dev) -> None:
     1, 3, 6, 12, 17 and 32 mixed int64/float64 columns into q15's interior
     capacity with the valid count below it, above it and 0, one device
     kernel a call (the profiler's count); span_segment on one int64 key and on mixed
-    int64/float64 keys, packed, gappy and empty, and on 10 keys of which
-    only the last two tell slots apart (the kernel's flag pass)."""
+    int64/float64 keys, packed, gappy and empty, on 10 and 32 keys of which
+    only the last two tell slots apart, each one device kernel a call, and
+    on 33 keys of which only the last does (past 32 keys the kernel's flag
+    pass runs first: a device kernel more for each group of 32)."""
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator().manual_seed(4)
@@ -1319,12 +1367,17 @@ def _span_kernel_checks(res: dict, dev) -> None:
     z = torch.zeros(n, dtype=torch.int64, device=dev)
     keys = {"1 int64 key": [a.to(dev)],
             "int64+float64 keys": [a.to(dev), b.to(dev)],
-            "10 keys (8 constant)": [z] * 8 + [a.to(dev), b.to(dev)]}
+            "10 keys (8 constant)": [z] * 8 + [a.to(dev), b.to(dev)],
+            "32 keys (30 constant)": [z] * 30 + [a.to(dev), b.to(dev)],
+            "33 keys (32 constant)": [z] * 32 + [a.to(dev)]}
     packed = torch.arange(n) < (n * 7) // 10
     cases = [("1 int64 key", "packed"), ("int64+float64 keys", "packed"),
              ("int64+float64 keys", "gappy"), ("int64+float64 keys", "count 0"),
              ("10 keys (8 constant)", "packed"),
-             ("10 keys (8 constant)", "gappy")]
+             ("10 keys (8 constant)", "gappy"),
+             ("32 keys (30 constant)", "packed"),
+             ("32 keys (30 constant)", "gappy"),
+             ("33 keys (32 constant)", "gappy")]
     seg_masks = {"packed": packed, "gappy": u < 0.5,
                  "count 0": torch.zeros(n, dtype=torch.bool)}
     for kname, mname in cases:
@@ -1335,16 +1388,30 @@ def _span_kernel_checks(res: dict, dev) -> None:
         if not all(_bitwise_equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"span_segment N={n} {kname} {mname}: "
                                  f"differs from plain")
-        groups = int(want[2])
+        groups, nvalid = int(want[2]), int(valid.sum())
         ms = cuda_ms(lambda: ops.span_segment(ks, valid), 20)
+        call = f"span_segment N={n} {kname} {mname}"
+        if len(ks) <= 32:
+            dev_us, per_call = one_kernel(
+                call, lambda: ops.span_segment(ks, valid)), 1
+        else:  # the flag pass: one key_differs launch a group of 32 more
+            dev_us, per_call = device_profile(
+                lambda: ops.span_segment(ks, valid), 5)
+            if per_call != 1 + -(-len(ks) // 32):
+                raise AssertionError(f"{call}: {per_call} device kernels a "
+                                     f"call, expected {1 + -(-len(ks) // 32)}")
         plain = cuda_ms(lambda: ref.span_segment(ks, valid), 5)
-        bound = _bound(_segment_bytes(ks, n), n * len(ks))
+        bound = _bound(_segment_bytes(ks, n, nvalid), n * len(ks))
         rows.append({"kernel": "span_segment", "keys": kname, "case": mname,
-                     "groups": groups, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bound[0], "bound_by": bound[1]})
-        say("kernels", f"span_segment N={n} {kname}, {mname} ({groups} "
-            f"groups): bitwise equal on every slot; ms={ms:.4f} "
-            f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
+                     "valid": nvalid, "groups": groups, "ms": ms,
+                     "device_us": dev_us, "kernels_per_call": per_call,
+                     "plain_ms": plain, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
+        say("kernels", f"span_segment N={n} {kname}, {mname} ({nvalid} "
+            f"valid, {groups} groups): bitwise equal on every slot; "
+            f"ms={ms:.4f} (device us {_us(dev_us)}, {per_call} device "
+            f"kernel(s) a call) plain_ms={plain:.4f} bound_ms={bound[0]:.4f} "
+            f"({bound[1]})")
     res["span_kernel_checks"] = rows
     del cols, keys, z
     torch.cuda.empty_cache()

@@ -49,8 +49,9 @@
 // Scratch, without a memset launch or a per-call allocation: a control
 // block (ticket, done count, epoch, ranked count) and one 64-bit status
 // word a tile, epoch (22 bits) | state (2) | count (40), published with
-// one release store; src, C source rows, is a second cached buffer.  A
-// status word counts only when it carries this launch's epoch; the last
+// one release store (span_lookback.cuh, shared with span_segment.cu);
+// src, C source rows, is a second cached buffer.  A status word counts
+// only when it carries this launch's epoch; the last
 // block to finish resets the counts and advances the epoch (on its wrap it
 // zeroes the status words), so the state lives on the card.  (The count
 // shares the word with the epoch, so the epoch has 22 bits and wraps every
@@ -70,6 +71,8 @@
 
 #include <cstdint>
 
+#include "span_lookback.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -78,16 +81,6 @@ constexpr int kRows = 64;                       // mask bytes a thread
 constexpr int kTile = kThreads * kRows;         // rows a tile
 constexpr int kMaxK = 32;                       // columns a launch
 constexpr int kUnroll = 4;                      // slots in flight a thread
-constexpr int kLook = 4;                        // status words a lane reads a step
-constexpr unsigned kSpinNs = 32;                // first back-off of a waiting lane
-constexpr unsigned kSpinMaxNs = 256;
-constexpr int kWindow = 32 * kLook;             // tiles a look-back step reads
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCountBits = 40;
-constexpr unsigned long long kCountMask = (1ull << kCountBits) - 1;
-constexpr unsigned kEpochMax = (1u << 22) - 1;
-
-enum : unsigned { kInvalid = 0, kAggregate = 1, kPrefix = 2 };
 
 struct Control {
   unsigned ticket, done, epoch, ranked;  // ranked: tiles whose src is written
@@ -104,54 +97,6 @@ struct Cols {
   int wpr[kMaxK];  // words per row
   int k;
 };
-
-__device__ __forceinline__ unsigned long long ld_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// A waiting lane sleeps between reads, longer each time (up to 256 ns),
-// so that spinning warps do not crowd the cache lines that the tiles
-// they wait for are publishing to.
-__device__ __forceinline__ void back_off(unsigned& ns) {
-  __nanosleep(ns);
-  ns = ns < kSpinMaxNs ? 2 * ns : kSpinMaxNs;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long status_word(unsigned e,
-                                                          unsigned state,
-                                                          long long count) {
-  return ((unsigned long long)e << (kCountBits + 2)) |
-         ((unsigned long long)state << kCountBits) |
-         (unsigned long long)count;
-}
-
-__device__ __forceinline__ unsigned status_epoch(unsigned long long w) {
-  return (unsigned)(w >> (kCountBits + 2));
-}
-
-__device__ __forceinline__ unsigned status_state(unsigned long long w) {
-  return (unsigned)(w >> kCountBits) & 3u;
-}
-
-// the low bit of each byte of w, set where the byte is nonzero
-__device__ __forceinline__ unsigned byte_bits(unsigned w) {
-  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
-}
 
 // A thread's kRows mask bytes: 16-byte loads, issued a tile ahead of
 // their use (`mask_bits`) where the rows are whole and aligned.
@@ -242,73 +187,6 @@ __device__ void fill_words(void* out, int wsz, unsigned long long w,
                              (unsigned)(p >> 32));
   for (long long o = v0 + 16 * i0; o < v1; o += 16 * stride) {
     *reinterpret_cast<uint4*>(base + o) = q;
-  }
-}
-
-__device__ __forceinline__ long long warp_sum(long long x) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
-  return x;
-}
-
-// The valid rows before tile t > 0: the published counts back to the
-// nearest inclusive prefix.  Called by all of warp 0, which reads 128
-// status words a step (four a lane, relaxed loads in flight together),
-// newest first.  Only the tiles from t-1 down to that prefix must have
-// published: the walk waits for no older tile, so a tile does not wait for
-// the slowest of its window's mask loads.  Tile 0 always publishes its
-// prefix at once.
-__device__ long long look_back(const unsigned long long* status, long long t,
-                               unsigned e) {
-  const int lane = threadIdx.x & 31;
-  long long sum = 0;
-  for (long long lo = t - kWindow;; lo -= kWindow) {
-    unsigned long long w[kLook];
-#pragma unroll
-    for (int i = 0; i < kLook; ++i) {
-      const long long j = lo + 32 * i + lane;
-      w[i] = j >= 0 ? ld_relaxed(status + j) : 0;
-    }
-    for (unsigned ns = kSpinNs;;) {
-      long long prefix = -1, waiting = -1;  // newest of each, this lane
-#pragma unroll
-      for (int i = 0; i < kLook; ++i) {
-        const long long j = lo + 32 * i + lane;
-        if (j < 0) continue;
-        if (status_epoch(w[i]) != e || status_state(w[i]) == kInvalid) {
-          waiting = j;
-        } else if (status_state(w[i]) == kPrefix) {
-          prefix = j;
-        }
-      }
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const long long p = __shfl_xor_sync(kFull, prefix, d);
-        const long long q = __shfl_xor_sync(kFull, waiting, d);
-        prefix = p > prefix ? p : prefix;
-        waiting = q > waiting ? q : waiting;
-      }
-      if (waiting < prefix || (waiting < 0 && prefix < 0)) {
-        long long part = 0;  // the prefix and the counts after it
-#pragma unroll
-        for (int i = 0; i < kLook; ++i) {
-          const long long j = lo + 32 * i + lane;
-          if (j >= 0 && j >= prefix) part += (long long)(w[i] & kCountMask);
-        }
-        sum += warp_sum(part);
-        if (prefix >= 0 || lo <= 0) return sum;
-        break;  // all published, none a prefix: the window before
-      }
-      back_off(ns);
-#pragma unroll
-      for (int i = 0; i < kLook; ++i) {
-        const long long j = lo + 32 * i + lane;
-        if (j >= 0 &&
-            (status_epoch(w[i]) != e || status_state(w[i]) == kInvalid)) {
-          w[i] = ld_relaxed(status + j);
-        }
-      }
-    }
   }
 }
 

@@ -134,11 +134,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         _declare_layout(lib.repro_span_compact_layout)
     elif name == "span_segment":
         fn = lib.repro_span_segment
-        fn.argtypes = [i, p, p, p, ll, p, p, p, p, p, p]
+        fn.argtypes = [i, p, p, ll, p, p, p, p, ll, p, p]
         fn.restype = i
-        scratch = lib.repro_span_segment_scratch
-        scratch.argtypes = [ll]
-        scratch.restype = ll
+        _declare_layout(lib.repro_span_segment_layout)
     elif name == "rwkv6_scan":
         fn = lib.repro_rwkv6_scan
         fn.argtypes = [i] * 4 + [p] * 8 + [i] * 4 + [p]

@@ -413,21 +413,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Megakernel span: boundary compaction and contiguous segmentation
 # ---------------------------------------------------------------------------
-_SPAN_MAX_K = 8  # keys span_segment compares without a flag pass (kMaxK)
+_SPAN_MAX_K = 32  # keys span_segment compares in its one launch (kMaxK)
 # span_segment key kinds (csrc/span_segment.cu): integers by width, floats
 # compared as IEEE values
 _KEY_KINDS = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
               torch.uint8: 3, torch.bool: 3, torch.float64: 4,
               torch.float32: 5}
-
-
-def _ptrs(tensors) -> "ctypes.Array":
-    return (ctypes.c_void_p * max(len(tensors), 1))(
-        *[t.data_ptr() for t in tensors])
-
-
-def _ints(values) -> "ctypes.Array":
-    return (ctypes.c_int * max(len(values), 1))(*values)
 
 
 def _span_check(name: str, tensors, valid: torch.Tensor) -> None:
@@ -446,12 +437,14 @@ _compact = None  # _lookback_kernel("span_compact"), once built
 _tls = threading.local()  # a reused column-descriptor buffer per thread
 
 
-def _descriptors(k: int) -> "ctypes.Array":
-    """This thread's descriptor buffer (four int64 words a column), grown
-    when needed and otherwise reused."""
+def _descriptors(words: int) -> "ctypes.Array":
+    """This thread's descriptor buffer of at least `words` int64 words
+    (`span_compact`: four a column, `span_segment`: two a key), grown when
+    needed and otherwise reused: a call's C entry copies it into the
+    launch's parameters before it returns."""
     buf = getattr(_tls, "desc", None)
-    if buf is None or len(buf) < 4 * k:
-        buf = (ctypes.c_longlong * max(4 * k, 128))()
+    if buf is None or len(buf) < words:
+        buf = (ctypes.c_longlong * max(words, 128))()
         _tls.desc = buf
     return buf
 
@@ -475,7 +468,7 @@ def span_compact(columns, valid: torch.Tensor, capacity: int):
     fn, tile, fixed, per_tile = _compact
     dev, n = valid.get_device(), valid.shape[0]
     valid = valid.contiguous()
-    desc = _descriptors(len(columns))
+    desc = _descriptors(4 * len(columns))
     ins, outs = [], []
     for j, c in enumerate(columns):
         c = c.contiguous()
@@ -502,38 +495,50 @@ def span_compact(columns, valid: torch.Tensor, capacity: int):
     return outs, valid_out, count
 
 
+_segment = None  # _lookback_kernel("span_segment"), once built
+
+
 def span_segment(keys, valid: torch.Tensor):
     """Segments of a packed, key-ordered batch: `(seg, is_start, count)`,
     bit for bit `masked._segments_contiguous` plus the group count (int64,
-    0-d).  One launch of `csrc/span_segment.cu` on the card; keys are 1-D
-    integer, bool, float32 or float64 columns, any number of them (past 8
-    the kernel first folds them into one difference flag a slot)."""
+    0-d).  One launch of `csrc/span_segment.cu` on the card for up to 32
+    keys; keys are 1-D integer, bool, float32 or float64 columns, any
+    number of them (past 32 a flag pass first folds them into one
+    difference flag a slot).  The host path stays lean, as
+    `span_compact`'s: the entry resolved once, the scratch cached, the
+    descriptors reused; only the three outputs are allocated."""
+    global _segment
     keys = list(keys)
     if not _on_cuda(valid, *keys):
         return ref.span_segment(keys, valid)
     _span_check("span_segment", keys, valid)
-    for k in keys:
-        if k.ndim != 1 or k.dtype not in _KEY_KINDS:
+    if _segment is None:
+        _segment = _lookback_kernel("span_segment")
+    fn, tile, fixed, per_tile = _segment
+    dev, n = valid.get_device(), valid.shape[0]
+    valid = valid.contiguous()
+    desc = _descriptors(2 * len(keys))
+    for j, k in enumerate(keys):
+        kind = _KEY_KINDS.get(k.dtype)
+        if k.ndim != 1 or kind is None:
             raise TypeError(f"span_segment takes 1-D keys of "
                             f"{sorted(str(d) for d in _KEY_KINDS)}, got "
                             f"{k.dtype} {tuple(k.shape)}")
-    dev, n = valid.device, valid.shape[0]
-    valid = valid.contiguous()
-    keys = [k.contiguous() for k in keys]
-    seg = torch.empty(n, dtype=torch.int64, device=dev)
-    is_start = torch.empty(n, dtype=torch.bool, device=dev)
-    count = torch.empty((), dtype=torch.int64, device=dev)
-    flags = (torch.empty(n, dtype=torch.uint8, device=dev)
+        k = keys[j] = k.contiguous()
+        desc[2 * j:2 * j + 2] = (k.data_ptr(), kind)
+    seg = torch.empty(n, dtype=torch.int64, device=valid.device)
+    is_start = torch.empty(n, dtype=torch.bool, device=valid.device)
+    count = torch.empty((), dtype=torch.int64, device=valid.device)
+    stream = _stream(dev)
+    buf = _scratch("span_segment", dev, stream,
+                   fixed + per_tile * -(-n // tile))
+    flags = (_scratch("span_segment_flags", dev, stream, n).data_ptr()
              if len(keys) > _SPAN_MAX_K else None)
-    lib = build.library("span_segment")
-    scratch = torch.empty(lib.repro_span_segment_scratch(n),
-                          dtype=torch.int64, device=dev)
-    err = lib.repro_span_segment(
-        len(keys), _ptrs(keys), _ints([_KEY_KINDS[k.dtype] for k in keys]),
-        valid.data_ptr(), n, seg.data_ptr(), is_start.data_ptr(),
-        None if flags is None else flags.data_ptr(), scratch.data_ptr(),
-        count.data_ptr(), _stream(dev))
-    build.check(err, "span_segment")
+    err = fn(len(keys), desc, valid.data_ptr(), n, seg.data_ptr(),
+             is_start.data_ptr(), count.data_ptr(), buf.data_ptr(),
+             buf.numel(), flags, stream)
+    if err:
+        build.check(err, "span_segment")
     LAUNCHES["span_segment"] += 1
     return seg, is_start, count
 

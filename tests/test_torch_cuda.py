@@ -154,8 +154,9 @@ def test_cuda_float_add_is_deterministic(cuda, entry, seg_rows):
 
 @pytest.mark.cuda
 def test_cuda_data_kernels_make_one_device_kernel_a_call(cuda):
-    """segment_reduce, segmented_scan and span_compact (32 columns) each
-    run as one device kernel a call, as the profiler counts them."""
+    """segment_reduce, segmented_scan, span_compact (32 columns) and
+    span_segment (1 and 32 keys) each run as one device kernel a call, as
+    the profiler counts them."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator().manual_seed(7)
@@ -169,7 +170,10 @@ def test_cuda_data_kernels_make_one_device_kernel_a_call(cuda):
     calls = {"segment_reduce": lambda: tops.segment_reduce(x, sid, n, "add",
                                                            valid),
              "segmented_scan": lambda: tops.segmented_scan(x, valid, "max"),
-             "span_compact": lambda: tops.span_compact(cols, valid, n // 2)}
+             "span_compact": lambda: tops.span_compact(cols, valid, n // 2),
+             "span_segment": lambda: tops.span_segment([sid], valid),
+             "span_segment 32 keys": lambda: tops.span_segment(
+                 cols[:31] + [sid], valid)}
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
@@ -262,7 +266,8 @@ def test_cuda_span_compact_matches_plain(cuda, k):
 @pytest.mark.cuda
 def test_cuda_span_segment_matches_plain(cuda):
     g = torch.Generator().manual_seed(5)
-    for n in (1, 4096, 4097, 300_007):
+    tile = 4096  # csrc/span_segment.cu kTile
+    for n in (1, tile - 1, tile, tile + 1, 300_007):
         a = torch.sort(torch.randint(0, max(n // 16, 2), (n,),
                                      generator=g)).values
         pick = torch.randint(0, 4, (n,), generator=g)
@@ -272,19 +277,44 @@ def test_cuda_span_segment_matches_plain(cuda):
         d = torch.rand(n, generator=g) < 0.5
         z = torch.zeros(n, dtype=torch.int64)
         cols = {f: t.to(cuda) for f, t in zip("abcdz", (a, b, c, d, z))}
-        # past 8 keys the kernel folds them into a flag a slot first; "z"
-        # keys make only the keys past the eighth tell slots apart
-        for kind, valid in _masks(g, n).items():
+        masks = _masks(g, n)
+        # valid rows only after an all-invalid first tile
+        masks["late"] = (torch.arange(n) >= tile + 5) & (
+            torch.rand(n, generator=g) < 0.9)
+        # up to 32 keys in one launch; past 32 the kernel folds them into a
+        # flag a slot first: "z" keys make only the last key tell slots
+        # apart, past the first group of 32
+        for kind, valid in masks.items():
             valid = valid.to(cuda)
             for keys in ("a", "ab", "bc", "abcd", "abcdabcda",
-                         "zzzzzzzzab", "zzzzzzzzzzzzzzzzzc"):
+                         "zzzzzzzzab", "zzzzzzzzzzzzzzzzzc", "abcd" * 8,
+                         "z" * 31 + "a", "z" * 32 + "c"):
                 ks = [cols[f] for f in keys]
+                tops.reset_launches()
                 got = tops.span_segment(ks, valid)
                 want = tref.span_segment(ks, valid)
                 torch.cuda.synchronize()
+                assert tops.LAUNCHES["span_segment"] == 1
                 assert torch.equal(got[0], want[0]), (n, kind, keys)
                 assert torch.equal(got[1], want[1]), (n, kind, keys)
                 assert int(got[2]) == int(want[2])
+
+
+@pytest.mark.cuda
+def test_cuda_span_segment_scratch_grows_and_shrinks(cuda):
+    """Calls in a row on one stream with n growing (the cached scratch is
+    replaced) and shrinking (stale status words of earlier epochs lie past
+    the tiles in use): each bit for bit equal to the plain version."""
+    g = torch.Generator().manual_seed(6)
+    for n in (1000, 600_000, 5000, 600_001, 17, 600_000):
+        a = torch.sort(torch.randint(0, max(n // 10, 2), (n,),
+                                     generator=g)).values.to(cuda)
+        valid = (torch.rand(n, generator=g) < 0.7).to(cuda)
+        got = tops.span_segment([a], valid)
+        want = tref.span_segment([a], valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[2]) == int(want[2]), n
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ import torch
 from test_torch_sca import (JAX, PAPER_FLOWS, TORCH, assert_same_rows, bind,
                             columns_of, corpus_flow)
 
+from repro.core import masked as JM
 from repro.core import pipeline as JP
 from repro.core.cost import seed_source_stats as jseed
 from repro.core.optimizer import optimize as joptimize
@@ -564,6 +565,36 @@ def test_span_segment_plain_equals_segments_contiguous(seed):
                 assert int(count) == int(want_start.sum())
                 w = ops.span_segment([cols[f] for f in keys], valid)
                 assert torch.equal(w[0], seg) and torch.equal(w[1], start)
+
+
+@pytest.mark.parametrize("mask", ["none", "all", "packed", "sparse",
+                                  "dense"])
+@pytest.mark.parametrize("keys", [("a",), ("b",), ("a", "b"),
+                                  ("a", "b", "c")])
+def test_span_segment_matches_reference_segments_contiguous(keys, mask):
+    """The port's segmentation (plain version and wrapper on CPU tensors)
+    against the JAX package's `_segments_contiguous` on the same seeded
+    keys and masks: int64 and float64 keys (signed zeros and NaNs compare
+    as IEEE values in both), `seg` by value (the reference's is int32),
+    `is_start` exactly, and the group count."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(200 + len(keys))
+    for n in (1, 2, 33, 4097):
+        valid = _mask(rng, n, mask)
+        cols = {"a": np.sort(rng.integers(0, max(n // 8, 2), n)),
+                "b": rng.choice([0.0, -0.0, 1.5, np.nan], size=n),
+                "c": rng.integers(-3, 3, n)}
+        want_seg, want_start = JM._segments_contiguous(
+            {f: jnp.asarray(cols[f]) for f in keys}, keys, jnp.asarray(valid))
+        want_seg, want_start = np.asarray(want_seg), np.asarray(want_start)
+        tkeys = [torch.from_numpy(cols[f]) for f in keys]
+        tvalid = torch.from_numpy(valid)
+        for seg, start, count in (ref.span_segment(tkeys, tvalid),
+                                  ops.span_segment(tkeys, tvalid)):
+            assert np.array_equal(seg.numpy(), want_seg), (n, keys, mask)
+            assert np.array_equal(start.numpy(), want_start), (n, keys, mask)
+            assert int(count) == int(want_start.sum())
 
 
 def test_contiguous_segmentation_equals_gappy_on_a_packed_batch():
