@@ -3,13 +3,17 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only probe,flash   # build + those checks only
     python3 chip_smoke.py --only dataflow      # build + flows, timing, profile
+    python3 chip_smoke.py --only adaptive,serving   # build + those phases
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
 optimize -> compile(use_kernels=True) -> CompiledPlan.run / run_device — for
 the paper's four evaluation flows at serving scale, on the default
 megakernel route and on the composed route, every result checked against
-the port's eager numpy executor; and token serving — Engine ->
+the port's eager numpy executor; adaptive re-planning (observe ->
+calibrate -> re-plan, `AdaptiveConfig`) and the multi-tenant data-flow
+engine (`serve.dataflow.DataflowEngine`) on the same kernels; and token
+serving — Engine ->
 Model.prefill / decode_step — at full width and depth for three models:
 qwen3-0.6b with the flash-attention kernel, rwkv6-3b with the rwkv6_scan
 kernel and recurrentgemma-2b with the linear_scan kernel.  Phases, one or
@@ -62,6 +66,27 @@ more lines each:
            q15's and q7's device kernels per step on each route with the
            join probe as one launch and, in turns, as the parent tree's
            four (search, cast, maximum, clamp)
+  adaptive q15_drift at 6M lineitem rows (hint 1.0, true selectivity
+           0.04): eight seeds bound on the card once, served in turn
+           through compile(use_kernels=True, adaptive=AdaptiveConfig(
+           check_every=2, patience=2)).run_device on the mega route, every
+           kernel call against its plain version and every batch against
+           eager; exactly one swap and no build after it; launches per
+           kernel; warm step medians in turns (unobserved, observed before
+           and after the swap, the oracle plan), recovery = oracle /
+           post-swap, device kernels and device-to-host copies of one
+           profiled observed step; then hint 0.001, whose truncation
+           force-swaps and re-runs on unchanged inputs, equal to eager, on
+           the mega route
+  serving  the launcher's four tenants (q15, click, text with calibrated
+           hints; drift at 25x) through DataflowEngine(ServeConfig(
+           max_coalesce=16, probe_every=8, use_kernels=True)) with a pump
+           thread, 64 requests of 4,096 rows each: every kernel call
+           against its plain version, every result against solo eager,
+           drift swaps and the others do not, a further round after
+           join_swaps builds and evicts nothing, launches per kernel; then
+           a timed run on a second engine sharing the warm cache: req/s,
+           p50 / p99 latency, coalesced share, truncations, serve_vs_solo
   serve    qwen3-0.6b (28 layers, d_model 1024, f32 weights, bf16
            activations, attn_impl="flash") from a seeded generator; 8
            requests of 1024-2048 prompt tokens and 32 greedy new tokens
@@ -97,6 +122,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -151,6 +177,15 @@ EXPECTED_ROUTES = {"q15": (("mega", 0, 4),), "q7": (("mega", 0, 7),),
                    "clickstream": (("mega", 0, 4),), "textmining": None}
 ROUTES = ("mega", "composed")
 SPAN_ROWS = 8_388_608  # q15's lineitem capacity at 6M rows
+
+# adaptive re-planning: q15_drift at q15's size, the filter's hint 25x over
+# the data's 4% (benchmarks/bench_adaptive.py's workload), and a truncating
+# underestimate
+DRIFT_HINT, DRIFT_SEL, DRIFT_SEEDS = 1.0, 0.04, 8
+UNDER_HINT = 0.001
+ADAPTIVE_ROUNDS = 21   # warm steps of each plan, taken in turns
+# multi-tenant serving: the launcher's four tenants and engine config
+TENANT_ROWS, TENANT_REQUESTS, COALESCE = 4096, 64, 16
 
 # token serving: qwen3-0.6b at full width and depth
 SERVE_ARCH = "qwen3-0.6b"
@@ -1570,6 +1605,576 @@ def _probe_launch_counts(res: dict, plans: dict) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# adaptive re-planning and multi-tenant serving
+# ---------------------------------------------------------------------------
+def _all_equal(phase: str, what: str, outs, refs) -> None:
+    """Each served result (a RecordBatch or a device MaskedBatch) equal to
+    its eager result: integers exactly, floats within 1e-5."""
+    for i, (got, ref) in enumerate(zip(outs, refs)):
+        if hasattr(got, "to_record_batch"):
+            got = got.to_record_batch()
+        if not got.equivalent(ref):
+            raise AssertionError(f"{phase}: {what} {i}: {got.capacity} rows, "
+                                 f"eager {ref.capacity}, not equivalent")
+
+
+def _call_shapes(chk) -> dict:
+    """The distinct row counts (N) each kernel saw in a checked run."""
+    out: dict = {}
+    for c in chk.calls:
+        out.setdefault(Checker.KERNEL[c["wrapper"]], set()).add(c["shape"][0])
+    return {k: sorted(v) for k, v in sorted(out.items())}
+
+
+def _kernels_launched(phase: str, launches: dict) -> None:
+    missing = [k for k in DATA_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"{phase}: kernels {missing} never launched on "
+                             f"the path: {launches}")
+
+
+def _d2h_copies(prof) -> int:
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("DtoH" in e.name or "Device -> Pageable" in e.name))
+
+
+def _profiled_step(step, reps: int = 4) -> dict:
+    """Device kernels, device-to-host copies, device busy us and the top
+    device ops of one warm `step()` under torch.profiler: the profiled
+    step with the most records of `reps` (the profiler now and then drops
+    records, never adds them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    out = {"device_kernels": 0, "d2h_copies": 0, "device_busy_us": 0.0,
+           "top": []}
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        b, n, per_name = _device_busy(prof)
+        d2h = _d2h_copies(prof)
+        if n - d2h > out["device_kernels"]:
+            top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+            out.update(device_kernels=n - d2h, device_busy_us=b,
+                       top=[(k[:60], round(t, 1)) for k, t in top])
+        out["d2h_copies"] = max(out["d2h_copies"], d2h)
+    return out
+
+
+def _host_us(fn, reps: int = 200) -> float:
+    """Median host us of `fn()` (host-only work: no device sync inside)."""
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t) * 1e6)
+    return float(np.median(ts))
+
+
+def _in_turns(steps: dict, rounds: int) -> dict:
+    """Warm step ms of each named `step()`, host clock around a synchronize,
+    taken in turns (the order reversed every other round): {name:
+    (q1, median, q3)}."""
+    ms = {k: [] for k in steps}
+    names = list(steps)
+    for i in range(rounds):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            steps[k]()
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t) * 1e3)
+    return {k: _quartiles(v) for k, v in ms.items()}
+
+
+def phase_adaptive(res: dict, dev) -> None:
+    """q15_drift at q15's size (6M lineitem rows, 10,000 suppliers) with the
+    filter's hint at 1.0 against a true selectivity of 0.04: eight seeds'
+    batches bound on the card once and served in turn through
+    `compile(use_kernels=True, adaptive=AdaptiveConfig(check_every=2,
+    patience=2))` on `run_device` (mega route), every kernel call held
+    against its plain version and every batch against the eager executor;
+    exactly one swap, no build after it.  Then the warm steps in turns:
+    unobserved, observed before the swap (a handle of the shipped plan
+    whose drift check never comes due), observed after it, and the oracle
+    plan (`q15_drift(hint_selectivity=0.04)`, no adaptivity); recovery =
+    oracle / post-swap; one profiled observed step's device kernels and
+    device-to-host copies.  Last, the truncating underestimate (hint
+    0.001): the force-swap re-runs the batch on its untouched inputs,
+    equals eager and stays on the mega route."""
+    from repro_torch.configs import flows
+    from repro_torch.core import executor
+    from repro_torch.core.optimizer import optimize
+    from repro_torch.core.pipeline import AdaptiveConfig, ExecutableCache
+    from repro_torch.kernels import ops
+
+    n = FLOW_ROWS["q15"]
+    t = time.perf_counter()
+    root, make = flows.q15_drift(hint_selectivity=DRIFT_HINT)
+    oracle_root, _ = flows.q15_drift(hint_selectivity=DRIFT_SEL)
+    batches = [make(n, seed=s, true_sel=DRIFT_SEL)
+               for s in range(DRIFT_SEEDS)]
+    refs = [executor.execute(root, b) for b in batches]
+    t_data = time.perf_counter() - t
+    cache = ExecutableCache()
+    shipped = optimize(root, include_commutes=False)
+    cfg = AdaptiveConfig(check_every=2, patience=2)
+    cp = shipped.compile(use_kernels=True, device=dev, cache=cache,
+                         adaptive=cfg)
+    t = time.perf_counter()
+    staged = [cp.bind_device(b) for b in batches]
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter() - t
+    bound_gb = sum(c.numel() * c.element_size() + b.valid.numel()
+                   for m in staged for b in m.values()
+                   for c in b.columns.values()) / 1e9
+    # the served run: in turns over the seeds until the swap, then every
+    # seed once more; counts set to zero just before and read just after
+    served, swap_at, traces_after = [], None, None
+    with Checker() as chk:
+        ops.reset_launches()
+        i = 0
+        while swap_at is None or i < swap_at + DRIFT_SEEDS:
+            k = i % DRIFT_SEEDS
+            served.append((k, cp.run_device(staged[k]).to_record_batch()))
+            if swap_at is None and cp.swaps:
+                swap_at = i
+            elif swap_at is not None and traces_after is None:
+                traces_after = cache.stats().traces  # the new regime built
+            i += 1
+            if swap_at is None and i >= 8 * DRIFT_SEEDS:
+                raise AssertionError("adaptive: drift never swapped the plan")
+        torch.cuda.synchronize()
+        launches = {k: ops.LAUNCHES[k] for k in DATA_KERNELS}
+    if chk.failures:
+        raise AssertionError(f"adaptive: kernel calls disagree with their "
+                             f"plain versions: {chk.failures}")
+    _kernels_launched("adaptive", launches)
+    _all_equal("adaptive", "served batch", [o for _, o in served],
+               [refs[k] for k, _ in served])
+    st = cache.stats()
+    if cp.swaps != 1 or st.traces != traces_after:
+        raise AssertionError(f"adaptive: {cp.swaps} swaps (expected 1), "
+                             f"{st.traces - traces_after} builds after the "
+                             f"swap's first batch (expected 0)")
+    routes = cp._last_routes
+    if not routes or not any(e[0] == "mega" for e in routes):
+        raise AssertionError(f"adaptive: post-swap routes {routes}")
+    shapes = _call_shapes(chk)
+    hint = {m.name: m for m in cp.flow.iter_nodes()}[
+        "FilterShipdate"].hints.selectivity
+    say("adaptive", f"q15_drift {n} lineitem rows, hint {DRIFT_HINT} vs true "
+        f"{DRIFT_SEL}: {DRIFT_SEEDS} seeds bound on the card once "
+        f"({bound_gb:.2f} GB, bind {t_bind:.1f}s; data + eager "
+        f"{t_data:.1f}s); {len(served)} batches served, swap at batch "
+        f"{swap_at} to filter hint {hint:.4g}, {cp.swaps} swap, no build "
+        f"after the new regime's first batch; routes {routes}; every batch "
+        f"equals eager; launches {launches}; kernel calls ({len(chk.calls)}, "
+        f"each held against its plain version) all agree; rows a call "
+        f"{shapes}")
+
+    # warm steps in turns
+    pre = shipped.compile(use_kernels=True, device=dev, cache=cache,
+                          adaptive=AdaptiveConfig(check_every=1 << 30))
+    plain = shipped.compile(use_kernels=True, device=dev, cache=cache)
+    oracle = optimize(oracle_root, include_commutes=False).compile(
+        use_kernels=True, device=dev, cache=cache)
+    m0 = staged[0]
+    _all_equal("adaptive", "oracle / unobserved / pre-swap step",
+               [oracle.run_device(m0), plain.run_device(m0),
+                pre.run_device(m0)], [refs[0]] * 3)
+    steps = {"unobserved": lambda: plain.run_device(m0),
+             "observed_pre_swap": lambda: pre.run_device(m0),
+             "observed_post_swap": lambda: cp.run_device(m0),
+             "oracle": lambda: oracle.run_device(m0)}
+    timing = _in_turns(steps, ADAPTIVE_ROUNDS)
+    if cp.swaps != 1 or pre.swaps:
+        raise AssertionError(f"adaptive: swaps while timing ({cp.swaps}, "
+                             f"{pre.swaps})")
+    prof = {k: _profiled_step(steps[k]) for k in
+            ("unobserved", "observed_post_swap")}
+    med = {k: v[1] for k, v in timing.items()}
+    recovery = med["oracle"] / med["observed_post_swap"]
+    # the observation's host work, alone: the device-to-host read of the
+    # packed vector (the step already waited for) and the fold into a store
+    from repro_torch.core.cost import StatsStore
+    from repro_torch.core.pipeline import _read_observations
+
+    mp, sig = cp._masked_sig(m0)
+    _, packed, caps = cp._executable(sig)(mp)
+    torch.cuda.synchronize()
+    counts = _read_observations(packed)
+    store = StatsStore()
+    host = {"read_us": _host_us(lambda: _read_observations(packed)),
+            "fold_us": _host_us(lambda: cp.fold_observation(store, counts,
+                                                            caps=caps)),
+            "device_values": int(packed[0].numel()),
+            "vector_length": len(counts)}
+    res["adaptive"] = {
+        "rows": n, "hint": DRIFT_HINT, "true_sel": DRIFT_SEL,
+        "seeds": DRIFT_SEEDS, "bound_gb": bound_gb, "swap_at_batch": swap_at,
+        "swaps": cp.swaps, "post_swap_hint": hint, "routes": routes,
+        "launches": launches, "kernel_calls": len(chk.calls),
+        "shapes": shapes, "step_ms": timing, "rounds": ADAPTIVE_ROUNDS, "recovery": recovery,
+        "speedup_vs_pre_swap": med["observed_pre_swap"]
+        / med["observed_post_swap"], "profile": prof,
+        "observation_host": host}
+    for k, (q1, m, q3) in timing.items():
+        say("adaptive", f"warm run_device {k}: median of {ADAPTIVE_ROUNDS} "
+            f"{m:.3f} ms (quartiles {q1:.3f} / {q3:.3f})")
+    say("adaptive", f"recovery (oracle / post-swap) {recovery:.3f}; post-swap "
+        f"{res['adaptive']['speedup_vs_pre_swap']:.3f}x the pre-swap "
+        f"observed step; profiled steps: {prof}; the observation's host "
+        f"work (the step already waited for): read {host['read_us']:.1f} us "
+        f"({host['device_values']} device values of a {host['vector_length']}"
+        f"-long vector), fold {host['fold_us']:.1f} us")
+    obs = prof["observed_post_swap"]["d2h_copies"]
+    if obs != prof["unobserved"]["d2h_copies"] + 1:
+        raise AssertionError(f"adaptive: an observed step makes {obs} "
+                             f"device-to-host copies, the unobserved "
+                             f"{prof['unobserved']['d2h_copies']}")
+
+    # the truncating underestimate: force-swap, re-run, same inputs
+    under, _ = flows.q15_drift(hint_selectivity=UNDER_HINT)
+    ucp = optimize(under, include_commutes=False).compile(
+        use_kernels=True, device=dev, cache=cache, adaptive=AdaptiveConfig())
+    m1 = staged[1]
+    before = {s: [c.clone() for c in b.columns.values()] + [b.valid.clone()]
+              for s, b in m1.items()}
+    with Checker() as chk:
+        out = ucp.run_device(m1)
+        torch.cuda.synchronize()
+    if chk.failures:
+        raise AssertionError(f"adaptive: kernel calls of the re-run disagree "
+                             f"with their plain versions: {chk.failures}")
+    _all_equal("adaptive", "re-run batch", [out], [refs[1]])
+    unchanged = all(torch.equal(x, y) for s, b in m1.items()
+                    for x, y in zip(list(b.columns.values()) + [b.valid],
+                                    before[s]))
+    uroutes = ucp._last_routes
+    if ucp.swaps < 1 or not unchanged or not uroutes \
+            or not any(e[0] == "mega" for e in uroutes):
+        raise AssertionError(f"adaptive: underestimate {ucp.swaps} swaps, "
+                             f"inputs unchanged {unchanged}, routes "
+                             f"{uroutes}")
+    res["adaptive"]["underestimate"] = {"hint": UNDER_HINT,
+                                        "swaps": ucp.swaps, "routes": uroutes}
+    say("adaptive", f"hint {UNDER_HINT} (a truncating underestimate): "
+        f"{ucp.swaps} force-swap(s), the re-run equals eager on inputs bit "
+        f"for bit unchanged, routes {uroutes}")
+    del staged, before, m0, m1
+    torch.cuda.empty_cache()
+
+
+def _calibrated(root, make, dev) -> tuple:
+    """A stationary tenant's flow with honest hints: a few of its own
+    batches observed offline on its own optimized plan and calibrated
+    (the registry's hints are production-scale; only the drift tenant
+    ships hints its data contradicts)."""
+    from repro_torch.core.cost import StatsStore, calibrate_hints
+    from repro_torch.core.optimizer import optimize
+    from repro_torch.core.pipeline import ExecutableCache
+
+    store = StatsStore()
+    cp = optimize(root, include_commutes=False).compile(
+        device=dev, cache=ExecutableCache())
+    for s in range(6):
+        _, counts, caps = cp.run_device_observed(
+            cp.bind_device(make(TENANT_ROWS, 9000 + s)))
+        cp.fold_observation(store, counts, caps=caps)
+    return calibrate_hints(root, store, prior_weight=0.0, quant=4)
+
+
+def _serving_tenants(dev) -> list:
+    """(name, flow, make) per tenant: the launcher's four."""
+    from repro_torch.configs import flows
+
+    q15_root, q15_b = flows.q15()
+    ck_root, ck_b = flows.clickstream()
+    tm_root, tm_b = flows.textmining()
+    dr_root, dr_b = flows.q15_drift(hint_selectivity=DRIFT_HINT)
+    raw = [("q15", q15_root, lambda n, s: q15_b(n, seed=s)),
+           ("click", ck_root, lambda n, s: ck_b(n, seed=s)),
+           ("text", tm_root, lambda n, s: tm_b(n, seed=s))]
+    out = [(name, _calibrated(fl, mk, dev), mk) for name, fl, mk in raw]
+    out.append(("drift", dr_root,
+                lambda n, s: dr_b(n, seed=s, true_sel=DRIFT_SEL)))
+    return out
+
+
+def _solo_rate(flow, reqs, dev, min_s: float = 0.5) -> float:
+    """A tenant's warm solo rate (bench_serving.py's `solo_req_s`): its own
+    optimized plan on its own cache, bind_device -> run_device -> fetch,
+    back to back."""
+    from repro_torch.core.optimizer import optimize
+    from repro_torch.core.pipeline import ExecutableCache
+
+    cp = optimize(flow, include_commutes=False).compile(
+        use_kernels=True, device=dev, cache=ExecutableCache())
+    cp.run_device(cp.bind_device(reqs[0])).to_record_batch()
+    t0 = time.perf_counter()
+    served = 0
+    while True:
+        cp.run_device(cp.bind_device(reqs[served % len(reqs)])
+                      ).to_record_batch()
+        served += 1
+        dt = time.perf_counter() - t0
+        if dt >= min_s:
+            return served / dt
+
+
+def _submit_all(eng, tenants, pool, count: int) -> list:
+    """`count` requests per tenant, tenant-interleaved as the launcher
+    submits them: [(tenant, pool index, request)]."""
+    return [(name, i, eng.submit(name, pool[name][i]))
+            for i in range(count) for name, _, _ in tenants]
+
+
+def _delivered(phase: str, reqs, refs) -> list:
+    lat = []
+    for name, i, r in reqs:
+        got = r.result(timeout=300)
+        if not got.equivalent(refs[name][i]):
+            raise AssertionError(f"{phase}: {name} request {i}: "
+                                 f"{got.capacity} rows, eager "
+                                 f"{refs[name][i].capacity}, not equivalent")
+        lat.append(r.latency)
+    return lat
+
+
+def phase_serving(res: dict, dev) -> None:
+    """The launcher's workload on the card: q15, click and text (their
+    hints calibrated offline on their own data, as bench_serving.py ships
+    stationary tenants) and drift (q15_drift at 25x) through
+    `DataflowEngine(ServeConfig(max_coalesce=16, probe_every=8,
+    use_kernels=True), device="cuda")`, 64 requests of 4,096 rows per
+    tenant from a `start()`ed pump thread.  The checked run holds every
+    kernel call against its plain version, every result against its solo
+    eager result, the swaps (drift at least one, the others none) and the
+    launches; after `join_swaps` a further round, submitted with the pump
+    stopped, must add no build and evict nothing.  The timed run is a
+    second engine on the same executable cache, unchecked while it runs:
+    req/s, p50 / p99 latency, coalesced share, truncations, and
+    serve_vs_solo against each tenant's warm solo rate."""
+    from repro_torch.core import executor
+    from repro_torch.kernels import ops
+    from repro_torch.serve.dataflow import DataflowEngine, ServeConfig
+
+    t = time.perf_counter()
+    tenants = _serving_tenants(dev)
+    pool = {name: [mk(TENANT_ROWS, 1000 * ti + i)
+                   for i in range(TENANT_REQUESTS)]
+            for ti, (name, _, mk) in enumerate(tenants)}
+    flows_by = {name: fl for name, fl, _ in tenants}
+    refs = {name: [executor.execute(flows_by[name], b) for b in pool[name]]
+            for name in pool}
+    t_prep = time.perf_counter() - t
+    cfg = ServeConfig(max_coalesce=COALESCE, probe_every=8,
+                      use_kernels=True)
+    eng = DataflowEngine(cfg, device=dev)
+    for name, fl, _ in tenants:
+        eng.register(name, fl)
+    stationary = [n for n, _, _ in tenants if n != "drift"]
+    # record each background pre-trace that completed, and on which thread
+    pretraced, pretrace = [], eng._pretrace
+
+    def counted(g, sample):
+        pretrace(g, sample)
+        pretraced.append(threading.current_thread().name)
+
+    eng._pretrace = counted
+    with Checker() as chk:
+        ops.reset_launches()
+        # warm-up: the stationary tenants' full-width batches build once
+        warm = [(n, i, eng.submit(n, pool[n][i]))
+                for i in range(COALESCE) for n in stationary]
+        eng.drain()
+        _delivered("serving", warm, refs)
+        eng.start()
+        try:
+            reqs = _submit_all(eng, tenants, pool, TENANT_REQUESTS)
+            _delivered("serving", reqs, refs)
+            eng.join_swaps(timeout=120)
+        finally:
+            eng.stop()
+        before = eng.cache.stats()
+        further = _submit_all(eng, tenants, pool, COALESCE)
+        eng.start()
+        try:
+            _delivered("serving", further, refs)
+        finally:
+            eng.stop()
+        torch.cuda.synchronize()
+        launches = {k: ops.LAUNCHES[k] for k in DATA_KERNELS}
+    after = eng.cache.stats()
+    if chk.failures:
+        raise AssertionError(f"serving: kernel calls disagree with their "
+                             f"plain versions: {chk.failures}")
+    _kernels_launched("serving", launches)
+    swaps = {n: eng.tenant_stats(n)["swaps"] for n, _, _ in tenants}
+    if swaps["drift"] < 1 or any(swaps[n] for n in stationary):
+        raise AssertionError(f"serving: swaps {swaps} (drift >= 1, the "
+                             f"others 0 expected)")
+    if (after.traces, after.evictions) != (before.traces, before.evictions):
+        raise AssertionError(f"serving: the further round built "
+                             f"{after.traces - before.traces} and evicted "
+                             f"{after.evictions - before.evictions}")
+    checked = eng.stats()
+    if checked["swap_errors"] or not pretraced \
+            or not all(n.startswith("swap-") for n in pretraced):
+        raise AssertionError(f"serving: pre-traces {pretraced}, swap errors "
+                             f"{checked['swap_errors']}")
+    drift_group = eng.tenant_stats("drift")["group_size"]
+    say("serving", f"checked run: 4 tenants x {TENANT_REQUESTS} "
+        f"requests of {TENANT_ROWS} rows (+ {COALESCE} warm-up each for "
+        f"q15/click/text, + a further round of {COALESCE} each); "
+        f"every result equals solo eager; swaps {swaps}; background "
+        f"pre-traces completed on {pretraced}; after its swap the drift "
+        f"tenant's plan group holds {drift_group} tenant(s); the further "
+        f"round built 0, evicted 0; launches {launches}; kernel calls "
+        f"({len(chk.calls)}, each held against its plain version) all "
+        f"agree, rows a call {_call_shapes(chk)}; engine {checked}; data + "
+        f"eager + calibration {t_prep:.1f}s")
+
+    # the timed run: a second engine on the same (warm) executable cache
+    eng2 = DataflowEngine(cfg, cache=eng.cache, device=dev)
+    for name, fl, _ in tenants:
+        eng2.register(name, fl)
+    eng2.start()
+    try:
+        t0 = time.perf_counter()
+        reqs = _submit_all(eng2, tenants, pool, TENANT_REQUESTS)
+        for _, _, r in reqs:
+            r.result(timeout=300)
+        wall = time.perf_counter() - t0
+        eng2.join_swaps(timeout=120)
+    finally:
+        eng2.stop()
+    lat = np.array(_delivered("serving", reqs, refs)) * 1e3
+    st = eng2.stats()
+    req_s = len(reqs) / wall
+    solo = {n: _solo_rate(flows_by[n], pool[n][:8], dev)
+            for n, _, _ in tenants}
+    serve_vs_solo = req_s / sum(solo.values())
+    swaps2 = {n: eng2.tenant_stats(n)["swaps"] for n, _, _ in tenants}
+    res["serving"] = {
+        "tenants": [n for n, _, _ in tenants], "rows": TENANT_ROWS,
+        "requests_per_tenant": TENANT_REQUESTS,
+        "checked": {"swaps": swaps, "launches": launches,
+                    "pretraces": pretraced, "drift_group_size": drift_group,
+                    "kernel_calls": len(chk.calls),
+                    "shapes": _call_shapes(chk),
+                    "stats": {k: v for k, v in checked.items()
+                              if k != "cache"},
+                    "cache": str(checked["cache"])},
+        "req_s": req_s, "wall_s": wall,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "coalesced_share": st["coalesced_requests"] / st["requests_served"],
+        "truncations": st["truncations"], "device_batches":
+        st["device_batches"], "swaps": swaps2,
+        "builds_in_window": st["cache"].traces - after.traces,
+        "solo_req_s": solo, "serve_vs_solo": serve_vs_solo}
+    r = res["serving"]
+    r["profiled"] = _serving_profile(eng.cache, cfg, tenants, pool, dev)
+    r["batch_parts_ms"] = _coalesced_parts(eng2, pool)
+    say("serving", f"timed run (second engine, warm cache): {len(reqs)} "
+        f"requests in {wall:.3f}s = {req_s:.1f} req/s; latency p50 "
+        f"{r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms; coalesced share "
+        f"{r['coalesced_share']:.3f}; {st['device_batches']} device "
+        f"batches; truncations {st['truncations']}; swaps {swaps2}; builds "
+        f"in the window {r['builds_in_window']}; solo req/s "
+        + ", ".join(f"{n} {v:.1f}" for n, v in solo.items())
+        + f"; serve_vs_solo {serve_vs_solo:.3f}")
+    say("serving", f"profiled run (third engine, warm cache, the profiler "
+        f"on): {r['profiled']}")
+    say("serving", "one coalesced batch of "
+        f"{COALESCE} requests per group, its parts' median ms: "
+        f"{r['batch_parts_ms']}")
+    if swaps2["drift"] < 1 or any(swaps2[n] for n in stationary):
+        raise AssertionError(f"serving: timed run swaps {swaps2}")
+    alive = [t.name for t in threading.enumerate()
+             if t.name == "dataflow-pump" or t.name.startswith("swap-")]
+    if alive:
+        raise AssertionError(f"serving: engine threads still running: "
+                             f"{alive}")
+
+
+def _serving_profile(cache, cfg, tenants, pool, dev) -> dict:
+    """The timed run's workload once more on a third engine (same warm
+    cache) under torch.profiler: device busy time against the window's
+    wall clock (the idle share), device kernels and device-to-host copies
+    per request.  The profiler slows the host, so the idle share is an
+    upper bound of the unprofiled run's."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.dataflow import DataflowEngine
+
+    eng = DataflowEngine(cfg, cache=cache, device=dev)
+    for name, fl, _ in tenants:
+        eng.register(name, fl)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.start()
+        try:
+            t0 = time.perf_counter()
+            reqs = _submit_all(eng, tenants, pool, TENANT_REQUESTS)
+            for _, _, r in reqs:
+                r.result(timeout=300)
+            eng.join_swaps(timeout=120)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            eng.stop()
+    busy, n, per_name = _device_busy(prof)
+    d2h = _d2h_copies(prof)
+    h2d = sum(1 for k in per_name if "HtoD" in k or "Pageable -> Device"
+              in k)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / wall_us,
+            "device_records_per_request": n / len(reqs),
+            "d2h_per_request": d2h / len(reqs), "h2d_names": h2d,
+            "device_batches": eng.stats()["device_batches"],
+            "top": [(k[:50], round(t / 1e3, 2)) for k, t in top]}
+
+
+def _coalesced_parts(eng, pool) -> dict:
+    """Where one coalesced batch's time goes, per plan group of the timed
+    engine: tagging and concatenating the requests on the host, binding
+    (padding and the host-to-device copy), the observed device step (it
+    ends in the one device-to-host read of its counts) and the demux
+    (result fetch and split), each a median of 5 warm reps, ms."""
+    from repro_torch.serve.dataflow import coalesce_bindings, split_result
+
+    out = {}
+    for g in list(eng._groups.values()):
+        if g.coalesced is None or not g.members:
+            continue
+        member = sorted(g.members)[0]
+        reqs = pool[member][:COALESCE]
+        parts = {"concat": [], "bind": [], "step": [], "demux": []}
+        for _ in range(6):
+            t = time.perf_counter()
+            combined = coalesce_bindings(reqs, g.coalesce_info)
+            t1 = time.perf_counter()
+            staged = g.coalesced.bind_device(combined)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            o, _, _ = g.coalesced.run_device_observed(staged)
+            t3 = time.perf_counter()
+            split_result(o.to_record_batch(), len(reqs), g.coalesce_info)
+            t4 = time.perf_counter()
+            for k, a, b in (("concat", t, t1), ("bind", t1, t2),
+                            ("step", t2, t3), ("demux", t3, t4)):
+                parts[k].append((b - a) * 1e3)
+        out["+".join(sorted(g.members))] = {
+            k: round(float(np.median(v[1:])), 3) for k, v in parts.items()}
+    return out
+
+
 class AttnChecker:
     """Wraps `ops.flash_attention` while the model serves: each call on the
     main path is held at once against the plain attention on the same
@@ -2044,7 +2649,8 @@ def main(argv) -> int:
 
     # `--only probe,flash,...`: the build and the named kernel checks
     # alone, for a short run while a kernel changes; `dataflow` adds the
-    # flows, timing and profile phases (no serving); no result line
+    # flows, timing and profile phases, `adaptive` and `serving` those
+    # phases (no token serving); no result line
     only = None
     if len(argv) == 2 and argv[0] == "--only":
         only = set(argv[1].split(","))
@@ -2073,6 +2679,12 @@ def main(argv) -> int:
             phase = "profile"
             phase_profile(res, plans)
             del plans
+        if only is not None and "adaptive" in only:
+            phase = "adaptive"
+            phase_adaptive(res, dev)
+        if only is not None and "serving" in only:
+            phase = "serving"
+            phase_serving(res, dev)
         if only is not None:
             say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
             os.makedirs(OUT_DIR, exist_ok=True)
@@ -2088,6 +2700,11 @@ def main(argv) -> int:
         phase = "profile"
         phase_profile(res, plans)
         del plans
+        torch.cuda.empty_cache()
+        phase = "adaptive"
+        phase_adaptive(res, dev)
+        phase = "serving"
+        phase_serving(res, dev)
         torch.cuda.empty_cache()
         phase = "serve"
         kernels.append(phase_serve(res, dev))

@@ -144,6 +144,68 @@ def q15(scale: int = 6_000_000):
 
 
 # ---------------------------------------------------------------------------
+# Q15 with a controllable hint/data gap: the adaptive-feedback workload
+# ---------------------------------------------------------------------------
+def q15_drift(hint_selectivity: float = 1.0, scale: int = 6_000_000):
+    """The q15 shape with the ship-date filter's hint DECOUPLED from the
+    data: the flow declares `hint_selectivity` (default 1.0 — "the filter
+    keeps everything") while the binding generator produces whatever true
+    selectivity the caller asks for per batch (default 0.04, i.e. a 25x
+    overestimate).  This is the adaptive-statistics benchmark workload
+    (benchmarks/bench_adaptive.py, DESIGN.md §9): the shipped plan is
+    CORRECT under the wrong hint — capacities are oversized, never too
+    small — but every downstream stage pays sorts and probes over 25x more
+    slots than the data needs, until observed-cardinality calibration swaps
+    in a rightly-sized plan.  `true_sel` moving across batches exercises
+    drift; the oracle plan for a workload is `q15_drift(hint_selectivity=
+    true_sel)` compiled directly."""
+    li = F.source("lineitem", Schema.of(
+        l_suppkey=np.int64, l_ext=np.float64, l_disc=np.float64,
+        l_ship=np.int64), num_records=scale, sorted_on=("l_suppkey",))
+    su = F.source("supplier", Schema.of(
+        s_key=np.int64, s_name=np.int64, s_addr=np.int64),
+        num_records=scale // 600, sorted_on=("s_key",))
+
+    def ship_filter(ir, out):
+        out.emit(ir.copy(), where=(ir.get("l_ship") >= 9100)
+                 & (ir.get("l_ship") < 9190))
+
+    def total_rev(g, out):
+        out.emit(g.keys().set(
+            "total_rev", g.sum(g.get("l_ext") * (1.0 - g.get("l_disc")))))
+
+    f = F.map_(li, ship_filter, name="FilterShipdate",
+               hints=Hints(selectivity=hint_selectivity))
+    r = F.reduce_(f, ["l_suppkey"], total_rev, name="AggRevenue",
+                  hints=Hints(distinct_keys=scale // 600))
+    root = F.match(r, su, ["l_suppkey"], ["s_key"], name="JoinSupplier",
+                   hints=Hints(pk_side="right"))
+
+    def bindings(n=20_000, seed=0, true_sel=0.04):
+        rng = np.random.default_rng(seed)
+        n_su = max(n // 600, 4)
+        # place exactly ~true_sel of the ship dates inside the filter's
+        # [9100, 9190) window, the rest uniformly outside it
+        in_win = rng.random(n) < true_sel
+        outside = rng.integers(8000, 10250 - 90, n)
+        outside = np.where(outside >= 9100, outside + 90, outside)
+        ship = np.where(in_win, rng.integers(9100, 9190, n), outside)
+        return {
+            "lineitem": batch_from_dict({
+                "l_suppkey": np.sort(rng.integers(0, n_su, n)),
+                "l_ext": rng.uniform(1, 1000, n).round(2),
+                "l_disc": rng.uniform(0, 0.1, n).round(3),
+                "l_ship": ship}),
+            "supplier": batch_from_dict({
+                "s_key": np.arange(n_su),
+                "s_name": rng.integers(0, 10_000, n_su),
+                "s_addr": rng.integers(0, 10_000, n_su)}),
+        }
+
+    return root, bindings
+
+
+# ---------------------------------------------------------------------------
 # Clickstream sessionization (Fig. 4): two non-relational Reduces + 2 joins
 # ---------------------------------------------------------------------------
 def clickstream(scale: int = 400_000_000):

@@ -46,20 +46,24 @@ class RankedPlan:
         return "->".join(reversed(self.flow.op_names()))
 
     def compile(self, use_kernels: bool = False, compact_slack: float = 2.0,
-                cache=None, use_order: bool = True,
-                use_megakernel: Optional[bool] = None, device="cuda"):
+                cache=None, use_order: bool = True, adaptive=None,
+                stats=None, use_megakernel: Optional[bool] = None,
+                device="cuda"):
         """Lower this plan into a ready-to-run `pipeline.CompiledPlan` on
         `device`.
 
         Lowers the PHYSICAL plan, so the shipping strategies and order
         properties (`Props.sort`) the costing relied on thread into the
-        stages — presorted inputs actually elide their sorts at runtime."""
+        stages — presorted inputs actually elide their sorts at runtime.
+        `adaptive`/`stats` enable observed-cardinality feedback serving
+        (`pipeline.AdaptiveConfig`, DESIGN.md §9)."""
         from .pipeline import compile_plan
 
         return compile_plan(self.plan, use_kernels=use_kernels,
                             compact_slack=compact_slack, cache=cache,
-                            use_order=use_order,
-                            use_megakernel=use_megakernel, device=device)
+                            use_order=use_order, adaptive=adaptive,
+                            stats=stats, use_megakernel=use_megakernel,
+                            device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,16 +83,18 @@ class OptResult:
         return self.num_enumerated or len(self.ranked)
 
     def compile(self, use_kernels: bool = False, compact_slack: float = 2.0,
-                cache=None, use_order: bool = True,
-                use_megakernel: Optional[bool] = None, device="cuda"):
+                cache=None, use_order: bool = True, adaptive=None,
+                stats=None, use_megakernel: Optional[bool] = None,
+                device="cuda"):
         """Compile the best plan: `optimize(flow).compile().run(bindings)`.
 
         Repeated optimize+compile of equal-shaped flows returns handles that
         share one warm executable through the plan-executable cache."""
         return self.best.compile(use_kernels=use_kernels,
                                  compact_slack=compact_slack, cache=cache,
-                                 use_order=use_order,
-                                 use_megakernel=use_megakernel, device=device)
+                                 use_order=use_order, adaptive=adaptive,
+                                 stats=stats, use_megakernel=use_megakernel,
+                                 device=device)
 
     def pick_rank_intervals(self, k: int = 10) -> list[RankedPlan]:
         """K plans at regular rank intervals (the paper's Figs. 5-7 method)."""

@@ -1,6 +1,6 @@
 """Compiled plan pipelines: fused lowering + a plan-executable cache.
 
-Port of `repro.core.pipeline` (see below for what is not ported yet).  The
+Port of `repro.core.pipeline`, its adaptive half included.  The
 optimizer's output only pays off if the chosen plan runs fast
 *repeatedly*: the serving pattern is many small request batches over a
 handful of flow shapes.  This module lowers a plan once into a pipeline of
@@ -30,7 +30,8 @@ built: a warm call is a fixed sequence of device launches with no host
 sync.  Executables are cached in an `ExecutableCache` keyed on a
 commute-invariant SEMANTIC fingerprint of the flow (`semantic_key`) plus
 source capacity buckets and runtime orders, the stages' order assumptions,
-`use_kernels`, `compact_slack`, `use_order` and the megakernel route:
+`use_kernels`, `compact_slack`, `use_order`, `observe` and the megakernel
+route:
 
     res = optimize(flow)
     cp = res.compile(use_kernels=True)     # device="cuda" by default
@@ -41,9 +42,24 @@ Device-resident serving: `run` pays a host round trip per call (bind numpy
 → device → compute → fetch).  `bind_device` stages batches onto the device
 once and `run_device` executes masked-in/masked-out with no host transfer.
 
-Not ported yet (ROADMAP.md, Queue 1 item 6): the adaptive observe →
-re-plan half (`AdaptiveConfig`, observation vectors, hot swaps).
-`run_stages` still reports each stage's boundary observations when asked.
+Adaptive serving (DESIGN.md §9): with an `AdaptiveConfig`, every executed
+batch also returns its stage-boundary valid-row counts — packed on the
+device into one int64 vector and read with ONE device-to-host copy — into
+a per-handle `cost.StatsStore`; a hysteresis-banded drift check
+re-optimizes under calibrated posterior hints and hot-swaps the stages
+when the workload's observed statistics durably leave the hints' regime.
+Calibrated hints are part of `semantic_key`, so a swap is a deliberate
+cache miss into a coexisting regime entry, and a batch that overran a
+planned compaction capacity is re-executed under the repaired plan before
+it is returned.  PyTorch has no buffer donation: no entry point takes a
+`donate` argument, and a truncation re-run reuses the bound inputs, which
+no executor writes into.
+
+Multi-tenant serving (DESIGN.md §11): `serve.dataflow.DataflowEngine`
+builds on this module's primitives — `semantic_key` routes tenants into
+plan groups, `bind_device` / `run_device_observed` / `fold_observation`
+serve coalesced batches with per-tenant feedback, and one shared
+`ExecutableCache` keeps every regime's executables warm across tenants.
 """
 
 from __future__ import annotations
@@ -59,7 +75,7 @@ import numpy as np
 import torch
 
 from . import masked as M
-from .cost import seed_source_stats
+from .cost import StatsStore, calibrate_hints, drift_score, seed_source_stats
 from .operators import (CoGroupOp, CrossOp, LimitOp, MapOp, MatchOp, Node,
                         ReduceOp, Source)
 from .physical import PhysPlan
@@ -618,6 +634,93 @@ def run_stages(stages: Sequence[Stage], bindings: Mapping[str, M.MaskedBatch],
     return last
 
 
+def stage_key(stage: Stage) -> tuple:
+    """A stage's identity in a `StatsStore`: the fused operators' NAMES
+    (bottom-up).  Names survive reordering rewrites, so observations made
+    under one plan calibrate every equivalent plan of the same flow."""
+    return tuple(op.name for op in stage.ops)
+
+
+def record_batch_obs(store: StatsStore, stages: Sequence[Stage],
+                     src_counts: Mapping[str, int],
+                     out_counts: Sequence[int], aux: Sequence[int],
+                     caps: Optional[Sequence[int]] = None) -> Optional[int]:
+    """Fold one executed batch's boundary counts into `store`.
+
+    Input rows per stage are resolved host-side from the producing stage's
+    (post-compaction, i.e. truncation-capped) count or the source's valid
+    count.  With `caps` given, returns the index of the first TRUNCATING
+    stage (observed pre-compaction rows exceeded the planned capacity) —
+    stages downstream of it saw truncated inputs, so their counts are NOT
+    recorded, and the truncating stage's own count is recorded with
+    `snap=True` (it is ground truth the next capacity must clear, not a
+    sample).  Returns None when nothing truncated."""
+    store.tick()
+    for name, c in src_counts.items():
+        store.observe_source(name, float(c))
+    trunc = None
+    if caps is not None:
+        for i, (c, cap) in enumerate(zip(out_counts, caps)):
+            if int(c) > int(cap):
+                trunc = i
+                break
+    n_rec = len(stages) if trunc is None else trunc + 1
+    for i in range(n_rec):
+        st = stages[i]
+        rows_in = []
+        for ref in st.inputs:
+            if ref[0] == "source":
+                rows_in.append(float(src_counts[ref[1]]))
+            else:
+                j = ref[1]
+                c = out_counts[j]
+                if caps is not None:
+                    c = min(int(c), int(caps[j]))
+                rows_in.append(float(c))
+        g: Optional[float] = float(aux[i]) if int(aux[i]) >= 0 else None
+        if st.kind == "reduce" and st.top.combiner:
+            # a combiner's per-shard groups over-count the global key set
+            # (every worker may hold every group); the merge half above it
+            # observes the true count
+            g = None
+        store.observe_stage(stage_key(st), rows_in, float(out_counts[i]),
+                            g, snap=(i == trunc))
+    return trunc
+
+
+def _pack_observations(mb: Mapping[str, M.MaskedBatch], obs: Sequence
+                       ) -> tuple:
+    """One batch's observations as `(device vector, host template, slots)`:
+    the layout is `[sources (name-sorted) valid rows, per-stage
+    pre-compaction rows, per-stage aux]`.  Device scalars of mixed
+    provenance (a mask's `sum`, `span_compact`'s count, a group count) are
+    cast to int64 and stacked into ONE device vector, so reading the batch
+    costs a single device-to-host copy; the aux of a stage without one is
+    the static -1, kept in the host template and never sent to the device.
+    `slots[i]` is the template index of the vector's i-th entry."""
+    vals = [mb[n].valid.sum() for n in sorted(mb)]
+    vals += [o[0] for o in obs] + [o[1] for o in obs]
+    template = [-1] * len(vals)
+    dev_vals, slots = [], []
+    for i, v in enumerate(vals):
+        if isinstance(v, torch.Tensor):
+            dev_vals.append(v.to(torch.int64).reshape(()))
+            slots.append(i)
+        else:
+            template[i] = int(v)
+    # every source's valid count is on the device: the vector is never empty
+    return torch.stack(dev_vals), template, slots
+
+
+def _read_observations(packed: tuple) -> np.ndarray:
+    """The packed observation vector on the host: one device-to-host copy
+    of the device part, scattered into the static template."""
+    vec, template, slots = packed
+    out = np.asarray(template, dtype=np.int64)
+    out[slots] = vec.cpu().numpy()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plan-executable cache
 # ---------------------------------------------------------------------------
@@ -657,15 +760,18 @@ class ExecutableCache:
 
     Key: `(semantic_key(flow), stage order signature, per-source (name,
     schema signature, capacity bucket, runtime order), use_kernels,
-    compact_slack, use_order, megakernel routes)`, with `use_megakernel`
-    inside the semantic part.  No dispatch mode joins it: one executable
+    compact_slack, use_order, observe, megakernel routes)`, with
+    `use_megakernel` inside the semantic part.  No dispatch mode joins it: one executable
     serves both devices, because each kernel wrapper dispatches on its
     tensors' device when it runs.  `traces` counts builds, so tests can assert
     that warm calls never rebuild.  Capacity defaults to
-    `$REPRO_EXEC_CACHE_CAP` (256); eviction drops the LRU entry and
-    increments `evictions`.  All map access is mutex-guarded: two threads
-    missing on one key may both build — one insert wins, the duplicate is
-    wasted work, never corruption."""
+    `$REPRO_EXEC_CACHE_CAP` (256): adaptive serving deliberately multiplies
+    executables (one per calibration regime), so the cache must be a bound,
+    not a leak.  Eviction drops the LRU entry and increments `evictions`.
+    All map access is mutex-guarded (the multi-tenant engine builds regime
+    swaps on a background thread while its pump serves from the same
+    cache): two threads missing on one key may both build — one insert
+    wins, the duplicate is wasted work, never corruption."""
 
     def __init__(self, maxsize: Optional[int] = None):
         self.maxsize = maxsize if maxsize is not None else _default_cache_cap()
@@ -693,6 +799,20 @@ class ExecutableCache:
             while len(self._data) > self.maxsize:
                 self._data.popitem(last=False)
                 self.evictions += 1
+
+    def resize(self, maxsize: int) -> None:
+        """Shrink/grow the bound, evicting LRU entries as needed."""
+        with self._mu:
+            self.maxsize = max(int(maxsize), 1)
+            while len(self._data) > self.maxsize:
+                self._data.popitem(last=False)
+                self.evictions += 1
+
+    def count_trace(self) -> None:
+        """Count one executable build (a swap thread builds beside the
+        serving thread, so the counter shares the map's lock)."""
+        with self._mu:
+            self.traces += 1
 
     def stats(self) -> CacheStats:
         with self._mu:
@@ -731,6 +851,39 @@ def _schema_sig(schema) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Adaptive serving configuration (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AdaptiveConfig:
+    """Knobs of the observe → calibrate → re-plan loop.
+
+    The drift score (`cost.drift_score`) is hysteresis-banded: a check with
+    score >= `drift_high` ARMS the trigger, one <= `drift_low` disarms it,
+    and scores inside the band hold the armed count — a re-plan fires only
+    after `patience` consecutive armed checks, so noisy-but-stationary
+    workloads never thrash.  `prior_weight` defaults to 0 because by the
+    time a swap fires, the hysteresis run has already statistically
+    confirmed the drift — the posterior should trust the observed EWMAs
+    outright (and, quantized on the 2^(1/quant) grid, a workload drifting
+    BACK reproduces its earlier regime's hints exactly, re-hitting the warm
+    executable).  Set it > 0 to blend conservatively toward the compiler
+    hints.  `search=False` skips the optimizer re-run on swap and only
+    re-lowers the calibrated flow (capacity recalibration without plan
+    re-ordering) — cheaper when re-plan latency matters more than plan
+    quality."""
+
+    check_every: int = 4       # drift-check cadence, in served batches
+    drift_high: float = 1.0    # |log2(observed/priced)| that arms the trigger
+    drift_low: float = 0.5     # score that disarms it (hysteresis band)
+    patience: int = 2          # consecutive armed checks before a re-plan
+    min_drift_rows: float = 8.0  # ignore stages this small (log-ratio noise)
+    prior_weight: float = 0.0  # compiler hint's worth in pseudo-batches
+    quant: int = 4             # posterior grid: 2^(1/quant) steps
+    search: bool = True        # re-optimize on swap (False: re-lower only)
+    replan_max_plans: int = 2000  # enumeration budget of the swap search
+
+
+# ---------------------------------------------------------------------------
 # Compiled plan handle
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -748,6 +901,17 @@ class CompiledPlan:
     `use_megakernel` (default on unless `REPRO_MEGAKERNEL=0`) routes the
     fusable stage runs of each source signature through megakernel spans;
     `_last_routes` holds the routes of the latest call.
+
+    With `adaptive` set, every executed batch also returns its stage-boundary
+    valid-row counts into `stats`, a per-handle `cost.StatsStore`;
+    `run`/`run_device` check a hysteresis-banded drift score every
+    `check_every` batches and, on sustained drift, re-optimize under
+    `cost.calibrate_hints` posteriors and hot-swap the stages.  Calibrated
+    hints are part of `semantic_key`, so a swap is a deliberate cache MISS
+    into a new regime entry — the old regime's executable stays warm for a
+    workload that drifts back — and a batch whose observed rows overran a
+    stage's planned capacity is re-executed under the recalibrated plan
+    before anything is returned (truncation is repriced, never served).
     """
 
     flow: Node
@@ -760,6 +924,8 @@ class CompiledPlan:
     cache: ExecutableCache = dataclasses.field(default_factory=executable_cache)
     device: torch.device = dataclasses.field(
         default_factory=lambda: resolve_device("cuda"))
+    adaptive: Optional[AdaptiveConfig] = None
+    stats: Optional[StatsStore] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -771,13 +937,24 @@ class CompiledPlan:
                                _order_sig(self.stages),
                                self.use_megakernel))
         # route planning costs host time on every dispatch: memoized per
-        # source capacity signature
+        # source capacity signature.  `_install` re-runs this initializer,
+        # so a hot-swap plans the new stage list's routes from scratch —
+        # which is what keeps a truncation force-swap on the mega route
         self._routes_memo: dict = {}
         self._last_routes: Optional[tuple] = None
         # static per-source schema signatures, computed once: stringifying
         # dtypes per call costs more than a warm serving step
         self._ssig = {name: _schema_sig(src.out_schema)
                       for name, src in self._sources.items()}
+        if not hasattr(self, "_base_flow"):  # re-run by _install on swap
+            self._base_flow = self.flow
+            if self.stats is None:
+                self.stats = StatsStore()
+            self.swaps = 0
+            self._calls = 0
+            self._armed = 0
+            self._regime_key = _Interned(semantic_key(self._base_flow))
+            self._regime_tick = 0
 
     # -- binding -------------------------------------------------------------
     def _bind(self, bindings: Mapping[str, RecordBatch]):
@@ -849,14 +1026,21 @@ class CompiledPlan:
             self._routes_memo[key] = hit
         return hit
 
-    def _executable(self, source_sig: tuple):
+    def _executable(self, source_sig: tuple, observe: Optional[bool] = None):
+        """The executable of one source signature.  An observing executable
+        returns `(out, packed observations, stage caps)`: the observations
+        stay on the device until `_read_observations` copies them out, and
+        the caps are the capacities each stage compacted to in THAT call
+        (the host-side reference for truncation detection)."""
+        if observe is None:
+            observe = self.adaptive is not None
         routes = self._routes({s[0]: s[2] for s in source_sig})
         self._last_routes = routes
         key = (self._sem, source_sig, self.use_kernels, self.compact_slack,
-               self.use_order, routes)
+               self.use_order, observe, routes)
         fn = self.cache.get(key)
         if fn is None:
-            self.cache.traces += 1
+            self.cache.count_trace()
             stages, use_kernels = self.stages, self.use_kernels
             slack, use_order = self.compact_slack, self.use_order
             # compaction capacities are static per executable: price them
@@ -864,30 +1048,206 @@ class CompiledPlan:
             stats_memo = seed_source_stats(
                 self.flow, {s[0]: s[2] for s in source_sig}, {})
 
-            def fn(mb):
+            def run(mb, obs, caps):
                 if not stages:
                     (only,) = mb.values()
                     return only
                 return run_stages(stages, mb, use_kernels, slack, stats_memo,
-                                  use_order=use_order, routes=routes)
+                                  use_order=use_order, observe=obs,
+                                  caps=caps, routes=routes)
+
+            if observe:
+                def fn(mb):
+                    # fresh lists per call: two threads may share one
+                    # executable, and `run_stages` appends to what it gets
+                    obs, caps = [], []
+                    out = run(mb, obs, caps)
+                    return out, _pack_observations(mb, obs), tuple(caps)
+            else:
+                def fn(mb):
+                    return run(mb, None, None)
 
             self.cache.put(key, fn)
         return fn
 
+    # -- observation plumbing (DESIGN.md §9/§11) -----------------------------
+    def fold_observation(self, store: StatsStore, counts,
+                         caps: Optional[Sequence[int]] = None
+                         ) -> Optional[int]:
+        """Fold one packed observation vector (as returned by
+        `run_device_observed`) into `store`, resolving the `[sources
+        (name-sorted), per-stage out counts, per-stage aux]` layout against
+        this handle's current stage list.  With `caps` given (the matching
+        stage caps), returns the index of the first stage whose observed
+        pre-compaction rows overran its planned capacity — the batch just
+        executed is silently missing rows past that stage — or None when
+        nothing truncated.  No policy runs here: the caller owns the store,
+        any drift decision and any truncation repair."""
+        counts = np.asarray(counts)
+        names = sorted(self._sources)
+        ns, nst = len(names), len(self.stages)
+        return record_batch_obs(store, self.stages,
+                                dict(zip(names, counts[:ns])),
+                                counts[ns:ns + nst],
+                                counts[ns + nst:ns + 2 * nst], caps=caps)
+
+    # -- adaptive feedback (DESIGN.md §9) ------------------------------------
+    def _observe(self, counts, caps) -> bool:
+        """Fold one batch's observation vector into `stats`; returns True
+        when a stage truncated — in which case the plan has already been
+        force-swapped and the caller must re-execute the batch."""
+        if self.fold_observation(self.stats, counts, caps=caps) is None:
+            return False
+        # the planned capacity was overrun: the batch just produced is
+        # silently missing rows.  Re-plan NOW with full confidence in the
+        # snapped observation (the truncated stage's pre-compaction count is
+        # ground truth) and have the caller re-run the batch.
+        self._replan(force=True)
+        return True
+
+    def _maybe_replan(self) -> None:
+        """The per-batch drift check: cheap, amortized over `check_every`
+        calls, hysteresis-banded so noise cannot thrash the plan."""
+        cfg = self.adaptive
+        self._calls += 1
+        if self._calls % cfg.check_every:
+            return
+        score = drift_score(self.flow, self.stats,
+                            min_rows=cfg.min_drift_rows,
+                            newer_than=self._regime_tick)
+        if score >= cfg.drift_high:
+            self._armed += 1
+        elif score <= cfg.drift_low:
+            self._armed = 0
+        if self._armed >= cfg.patience:
+            self._replan()
+            self._armed = 0
+
+    def _replan(self, force: bool = False) -> bool:
+        """Calibrate hints from `stats` and, if that lands in a NEW regime
+        (different posterior hints — i.e. a different `semantic_key`),
+        re-optimize and hot-swap the lowered stages.  Runs only when drift
+        is sustained (or a truncation forced it), never per batch.  Returns
+        True when a swap was installed.  The search is the port's
+        `optimize`, whose group search keeps every reordering's attribute
+        set (ROADMAP.md Queue 3 item 1)."""
+        cfg = self.adaptive
+        calibrated = calibrate_hints(
+            self._base_flow, self.stats,
+            prior_weight=0.0 if force else cfg.prior_weight,
+            quant=cfg.quant)
+        sem = _Interned(semantic_key(calibrated))
+        if sem == self._regime_key and not force:
+            return False  # same quantized regime: the current plan stands
+        new_flow, new_stages = calibrated, None
+        if cfg.search:
+            from .enumeration import PlanSpaceExceeded
+            from .optimizer import optimize
+
+            try:
+                res = optimize(calibrated, max_plans=cfg.replan_max_plans,
+                               include_commutes=False)
+                new_flow = res.best.plan.node
+                new_stages = lower_phys(res.best.plan)
+            except PlanSpaceExceeded:
+                pass  # fall back to re-lowering the calibrated flow
+        if new_stages is None:
+            new_stages = lower(calibrated)
+        self._install(new_flow, new_stages, sem)
+        return True
+
+    def _install(self, flow: Node, stages: tuple, regime_key) -> None:
+        """Hot-swap the handle onto a new plan.  The executable cache is
+        untouched: the next call MISSES into the new regime's entry (or hits
+        it, if this regime was served before) while previous regimes' warm
+        entries remain reusable."""
+        self.flow = flow
+        self.stages = stages
+        self.__post_init__()  # recompute _sources/_sem/_ssig; state kept
+        self._regime_key = regime_key
+        self._regime_tick = self.stats.clock
+        self.swaps += 1
+
+    def _serve_adaptive(self, masked_bindings: Mapping[str, M.MaskedBatch]
+                        ) -> M.MaskedBatch:
+        """The observing serve step shared by `run` and `run_device`:
+        execute, fold the observation in, and on a capacity overrun re-plan
+        and re-execute on the SAME bound inputs (nothing donates them, and
+        no executor writes into its inputs).  Each force-swap repairs at
+        least the first truncating stage, so attempts are bounded by the
+        CURRENT plan's stage count (re-read per attempt: a swap may change
+        the fusion grouping)."""
+        attempts = 0
+        while True:
+            masked, sig = self._masked_sig(masked_bindings)
+            out, packed, caps = self._executable(sig)(masked)
+            if not self._observe(_read_observations(packed), caps):
+                self._maybe_replan()
+                return out
+            attempts += 1
+            if attempts > len(self.stages) + 2:
+                raise RuntimeError(
+                    "adaptive re-planning failed to clear a capacity "
+                    f"overrun after {attempts} attempts")
+
     # -- execution -----------------------------------------------------------
     def run(self, bindings: Mapping[str, RecordBatch]) -> RecordBatch:
-        """Execute on fresh host batches; warm-cache calls do not rebuild."""
+        """Execute on fresh host batches; warm-cache calls do not rebuild.
+
+        Under `adaptive`, the batch's boundary counts are recorded and a
+        batch that overran a planned capacity is transparently re-executed
+        under the recalibrated plan."""
         masked, sig = self._bind(bindings)
-        return self._executable(sig)(masked).to_record_batch()
+        if self.adaptive is None:
+            return self._executable(sig)(masked).to_record_batch()
+        return self._serve_adaptive(masked).to_record_batch()
 
     def run_device(self, masked_bindings: Mapping[str, M.MaskedBatch]
                    ) -> M.MaskedBatch:
         """Device-resident serving step: masked batches in, masked batch out,
         no host transfer and no re-binding.  Launches are asynchronous — the
         caller chains further device work (or synchronizes when it must
-        read)."""
+        read).
+
+        Under `adaptive`, the observation read synchronizes each step (the
+        price of feedback: one device-to-host copy of the packed counts)."""
+        if self.adaptive is None:
+            masked, sig = self._masked_sig(masked_bindings)
+            return self._executable(sig)(masked)
+        return self._serve_adaptive(masked_bindings)
+
+    def run_device_observed(self, masked_bindings: Mapping[str, M.MaskedBatch]
+                            ) -> tuple:
+        """Device-resident step that also returns the batch's observations:
+        `(out, counts, stage_caps)` where `counts` is the packed int64
+        vector of per-source valid rows, per-stage pre-compaction rows and
+        per-stage KAT/Match aux counts, and `stage_caps` the capacities the
+        stages compacted to — feed both to `fold_observation` for recording
+        and truncation detection.
+
+        Unlike `adaptive` serving, NO policy runs: the caller owns the
+        `StatsStore`, the drift decision and any truncation repair.  This is
+        the hook the multi-tenant dataflow engine (`serve.dataflow`,
+        DESIGN.md §11) builds its per-tenant feedback on.  Reading the
+        counts synchronizes with the device: one device-to-host copy, the
+        per-batch price of observation."""
         masked, sig = self._masked_sig(masked_bindings)
-        return self._executable(sig)(masked)
+        out, packed, caps = self._executable(sig, observe=True)(masked)
+        return out, _read_observations(packed), caps
+
+    def run_masked(self, masked_bindings: Mapping[str, M.MaskedBatch]
+                   ) -> M.MaskedBatch:
+        """Execute on already-masked batches without the executable cache
+        (for embedding a compiled flow in a larger program of one's own)."""
+        if not self.stages:
+            (only,) = masked_bindings.values()
+            return only
+        masked, _ = self._masked_sig(masked_bindings)
+        caps = {n: b.capacity for n, b in masked.items()}
+        stats_memo = seed_source_stats(self.flow, caps, {})
+        return run_stages(self.stages, masked, self.use_kernels,
+                          self.compact_slack, stats_memo,
+                          use_order=self.use_order, routes=self._routes(caps))
 
     def cache_stats(self) -> CacheStats:
         return self.cache.stats()
@@ -897,15 +1257,19 @@ def compile_plan(flow_or_plan, use_kernels: bool = False,
                  compact_slack: float = 2.0,
                  cache: Optional[ExecutableCache] = None,
                  use_order: bool = True,
+                 adaptive: Optional[AdaptiveConfig] = None,
+                 stats: Optional[StatsStore] = None,
                  use_megakernel: Optional[bool] = None,
                  device="cuda") -> CompiledPlan:
     """Lower a logical flow — or a `PhysPlan`, whose shipping strategies and
     physical `Props` then thread into the stages — into a `CompiledPlan`
     that runs on `device` ("cuda" by default; raises when there is no CUDA
-    device and `device="cpu"` was not asked for).  `use_megakernel`
-    (default on; `REPRO_MEGAKERNEL=0` turns it off everywhere) routes
-    fusable stage runs through the whole-stage megakernel (DESIGN.md
-    §10)."""
+    device and `device="cpu"` was not asked for).  Pass an `AdaptiveConfig`
+    to serve with observed-cardinality feedback and drift-triggered plan
+    swaps (DESIGN.md §9); `stats` optionally shares a `StatsStore` across
+    handles.  `use_megakernel` (default on; `REPRO_MEGAKERNEL=0` turns it
+    off everywhere) routes fusable stage runs through the whole-stage
+    megakernel (DESIGN.md §10)."""
     if isinstance(flow_or_plan, PhysPlan):
         flow, stages = flow_or_plan.node, lower_phys(flow_or_plan)
     else:
@@ -915,4 +1279,5 @@ def compile_plan(flow_or_plan, use_kernels: bool = False,
     return CompiledPlan(flow=flow, stages=stages,
                         use_kernels=use_kernels, compact_slack=compact_slack,
                         use_order=use_order, use_megakernel=use_megakernel,
-                        cache=cache or _CACHE, device=resolve_device(device))
+                        cache=cache or _CACHE, device=resolve_device(device),
+                        adaptive=adaptive, stats=stats)

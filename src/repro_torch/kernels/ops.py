@@ -40,9 +40,20 @@ _OPS = {"add": 0, "max": 1, "min": 2}
 _MAX_COLS = 4  # columns per scan (csrc/segmented_scan.cu kMaxC)
 
 
+# a regime swap's pre-trace launches from its own thread beside the
+# serving pump (serve.dataflow), so the counts are updated under a lock
+_LAUNCHES_MU = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_MU:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_MU:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -91,7 +102,9 @@ def _scratch(name: str, dev: int, stream: int, nbytes: int) -> torch.Tensor:
     least) and then kept: the kernels keep it valid between calls
     themselves (tile status words carry an epoch that each launch advances
     on the card), so a call allocates and clears nothing.  Keyed by stream
-    because two calls in flight must not share it."""
+    because two calls in flight must not share it: a thread that launches
+    beside another one (a regime swap's pre-trace, `serve.dataflow`) does
+    so on a stream of its own, so no two threads ever share a key."""
     key = (name, dev, stream)
     buf = _scratch_bufs.get(key)
     if buf is None or buf.numel() < nbytes:
@@ -147,7 +160,7 @@ def _launch_scan(v: torch.Tensor, op: str, out: torch.Tensor, flags=None,
              buf.data_ptr(), buf.numel(), stream)
     if err:
         build.check(err, "segmented_scan")
-    LAUNCHES["segmented_scan"] += 1
+    _count("segmented_scan")
 
 
 def segmented_scan(values: torch.Tensor, flags: torch.Tensor,
@@ -296,7 +309,7 @@ def _launch_probe(keys: torch.Tensor, q: torch.Tensor, out: torch.Tensor,
                     _stream(q.get_device()))
     if err:
         build.check(err, "sorted_probe")
-    LAUNCHES["sorted_probe"] += 1
+    _count("sorted_probe")
 
 
 def sorted_probe(keys_sorted: torch.Tensor, queries: torch.Tensor
@@ -406,7 +419,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale) if scale is not None else d ** -0.5, int(bool(causal)),
         win, _stream(q.device))
     build.check(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     return out
 
 
@@ -491,7 +504,7 @@ def span_compact(columns, valid: torch.Tensor, capacity: int):
              buf.numel(), src.data_ptr(), stream)
     if err:
         build.check(err, "span_compact")
-    LAUNCHES["span_compact"] += 1
+    _count("span_compact")
     return outs, valid_out, count
 
 
@@ -539,7 +552,7 @@ def span_segment(keys, valid: torch.Tensor):
              buf.numel(), flags, stream)
     if err:
         build.check(err, "span_segment")
-    LAUNCHES["span_segment"] += 1
+    _count("span_segment")
     return seg, is_start, count
 
 
@@ -614,7 +627,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if s_out is None else s_out.data_ptr(), out.data_ptr(),
             b * h, h, t, dv, _stream(r.device))
         build.check(err, "rwkv6_scan")
-        LAUNCHES["rwkv6_scan"] += 1
+        _count("rwkv6_scan")
     return (out, s_out) if return_state else out
 
 
@@ -652,5 +665,5 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
             None if h0 is None else h0.data_ptr(), out.data_ptr(), g, t, d,
             _stream(a.device))
         build.check(err, "linear_scan")
-        LAUNCHES["linear_scan"] += 1
+        _count("linear_scan")
     return out

@@ -1,19 +1,24 @@
 """Serving launcher: batched token generation for a dense, rwkv6 or hybrid
---arch.
+--arch, or the multi-tenant data-flow engine (DESIGN.md §11).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --requests 8 --max-new 16 [--device cpu]
 
-Port of the token-serving half of `repro.launch.serve`, with its flags and
-`--device`: it runs on the card unless told otherwise.  The config is the
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataflow \
+        --requests 64 --rows 512 [--device cpu]
+
+Port of `repro.launch.serve`, with its flags and `--device`: it runs on the
+card unless told otherwise.  `--dataflow` serves a mixed workload (q15,
+clickstream and textmining tenants, plus a drifting q15-shaped tenant)
+through `serve.dataflow.DataflowEngine` on a background pump thread and
+reports per-tenant throughput, swaps and the engine's cache behaviour.  The config is the
 registry's, as in the reference, so attention is plain (`attn_impl="xla"`)
 and the CUDA flash kernel runs only for a config that asks for
 `attn_impl="flash"`; the model leaves `use_kernel` unset, as the
 reference's launcher does, so the rwkv6 and RG-LRU recurrences take their
 plain paths.  Weights are drawn from a seeded generator, as the
 reference's launcher does; no checkpoint is read.  The moe, encdec and vlm
-families and `--dataflow` (the multi-tenant data-flow engine) are not
-ported yet.
+families are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,11 +34,53 @@ from ..models import make_model
 from ..serve.engine import Engine, Request
 
 
+def _main_dataflow(args):
+    from ..configs import flows
+    from ..serve.dataflow import DataflowEngine, ServeConfig
+
+    q15_root, q15_b = flows.q15()
+    ck_root, ck_b = flows.clickstream()
+    tm_root, tm_b = flows.textmining()
+    dr_root, dr_b = flows.q15_drift(hint_selectivity=1.0)
+    tenants = [
+        ("q15", q15_root, lambda n, s: q15_b(n, seed=s)),
+        ("click", ck_root, lambda n, s: ck_b(n, seed=s)),
+        ("text", tm_root, lambda n, s: tm_b(n, seed=s)),
+        ("drift", dr_root, lambda n, s: dr_b(n, seed=s, true_sel=0.04)),
+    ]
+    eng = DataflowEngine(ServeConfig(max_coalesce=16, probe_every=8),
+                         device=args.device)
+    for name, root, _ in tenants:
+        eng.register(name, root)
+
+    eng.start()  # pump on a background thread; submissions from this one
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(name, mk(args.rows, 1000 * ti + i))
+                for i in range(args.requests)
+                for ti, (name, _, mk) in enumerate(tenants)]
+        for r in reqs:
+            r.result(timeout=300)
+        dt = time.perf_counter() - t0
+        eng.join_swaps(timeout=60)
+    finally:
+        eng.stop()
+
+    lat = np.array([r.latency for r in reqs])
+    print(f"[dataflow] {len(reqs)} requests x {args.rows} rows over "
+          f"{len(tenants)} tenants on {eng.device} in {dt:.2f}s "
+          f"({len(reqs) / dt:.0f} req/s, "
+          f"p99 {np.percentile(lat, 99) * 1e3:.1f}ms)")
+    for name, _, _ in tenants:
+        print(f"  {name}: {eng.tenant_stats(name)}")
+    print(f"  engine: {eng.stats()}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataflow", action="store_true",
                     help="serve the mixed dataflow-tenant demo workload "
-                         "instead of token generation (not ported yet)")
+                         "instead of token generation")
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
@@ -47,9 +94,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.dataflow:
-        raise NotImplementedError(
-            "--dataflow needs serve/dataflow.py, which is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+        return _main_dataflow(args)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     device = torch.device(args.device)

@@ -215,6 +215,70 @@ def test_cuda_main_path_matches_eager(cuda, name):
     assert cp.run_device(cp.bind_device(b)).to_record_batch().equivalent(ref)
 
 
+@pytest.mark.cuda
+def test_cuda_adaptive_swap_matches_eager(cuda):
+    """q15_drift's 25x overestimate served adaptively on the card: one
+    swap, still on the mega route, every batch equal to eager; and the
+    truncating underestimate force-swaps, re-runs and equals eager."""
+    from repro_torch.core.pipeline import AdaptiveConfig, ExecutableCache
+
+    root, make = flows.q15_drift(hint_selectivity=1.0)
+    batches = [make(60_000, seed=s, true_sel=0.04) for s in range(3)]
+    refs = [executor.execute(root, b) for b in batches]
+    staged = [None] * len(batches)
+    cp = optimize(root, include_commutes=False).compile(
+        use_kernels=True, device=cuda, cache=ExecutableCache(),
+        adaptive=AdaptiveConfig(check_every=2, patience=2))
+    tops.reset_launches()
+    for i in range(10):
+        k = i % len(batches)
+        if staged[k] is None:
+            staged[k] = cp.bind_device(batches[k])
+        assert cp.run_device(staged[k]).to_record_batch().equivalent(refs[k])
+    assert cp.swaps == 1
+    assert any(e[0] == "mega" for e in cp._last_routes)
+    assert tops.LAUNCHES["span_compact"] and tops.LAUNCHES["sorted_probe"]
+    under, make = flows.q15_drift(hint_selectivity=0.001)
+    b = make(60_000, seed=9, true_sel=0.04)
+    cp = optimize(under, include_commutes=False).compile(
+        use_kernels=True, device=cuda, cache=ExecutableCache(),
+        adaptive=AdaptiveConfig())
+    assert cp.run(b).equivalent(executor.execute(under, b))
+    assert cp.swaps >= 1 and any(e[0] == "mega" for e in cp._last_routes)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_async_swap_matches_eager(cuda):
+    """The multi-tenant engine on the card with background swaps and a pump
+    thread: the drifter swaps (its pre-trace on the engine's own stream),
+    its co-tenant does not, and every result equals eager."""
+    from repro_torch.serve.dataflow import DataflowEngine, ServeConfig
+
+    q15, qmk = flows.q15()
+    drift, dmk = flows.q15_drift(hint_selectivity=1.0)
+    eng = DataflowEngine(ServeConfig(max_coalesce=8, probe_every=4,
+                                     use_kernels=True, async_swap=True),
+                         device=cuda)
+    eng.register("q15", q15)
+    eng.register("drift", drift)
+    eng.start()
+    try:
+        reqs = []
+        for i in range(48):
+            d = dmk(4096, seed=100 + i, true_sel=0.04)
+            q = qmk(4096, seed=500 + i)
+            reqs += [(drift, d, eng.submit("drift", d)),
+                     (q15, q, eng.submit("q15", q))]
+        for root, b, r in reqs:
+            assert r.result(timeout=120).equivalent(executor.execute(root, b))
+        eng.join_swaps(timeout=120)
+    finally:
+        eng.stop()
+    assert eng.tenant_stats("drift")["swaps"] >= 1
+    assert eng.tenant_stats("q15")["swaps"] == 0
+    assert eng.stats()["swap_errors"] == 0
+
+
 def _rows(batch) -> list:
     """Valid rows as sorted tuples, fields by name, values bit-exact."""
     b = batch.to_numpy().compact()

@@ -340,5 +340,11 @@ def test_launcher_serves_on_cpu(capsys):
                  "--max-new", "3"])
     out = capsys.readouterr().out
     assert "3 requests, 9 tokens" in out and "xla attention" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tserve.main(["--dataflow"])
+    # --dataflow: the four data-flow tenants through the multi-tenant engine
+    tserve.main(["--dataflow", "--device", "cpu", "--requests", "4",
+                 "--rows", "300"])
+    out = capsys.readouterr().out
+    assert "16 requests x 300 rows over 4 tenants on cpu" in out
+    for tenant in ("q15", "click", "text", "drift"):
+        assert f"  {tenant}: {{'requests': 4," in out
+    assert "'requests_served': 16" in out and "'swap_errors': 0" in out

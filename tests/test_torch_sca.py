@@ -271,7 +271,8 @@ def test_port_imports_no_jax():
             "repro_torch.configs.flows, repro_torch.core.pipeline, "
             "repro_torch.kernels.ops, repro_torch.kernels.megakernel, "
             "repro_torch.models.model, "
-            "repro_torch.serve.engine, repro_torch.launch.serve; "
+            "repro_torch.serve.engine, repro_torch.serve.dataflow, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "assert torch.get_default_dtype() == torch.float32; "
