@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only probe,flash   # build + those checks only
     python3 chip_smoke.py --only dataflow      # build + flows, timing, profile
     python3 chip_smoke.py --only adaptive,serving   # build + those phases
+    python3 chip_smoke.py --only mesh          # build + the sharded executor
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
@@ -11,8 +12,9 @@ optimize -> compile(use_kernels=True) -> CompiledPlan.run / run_device — for
 the paper's four evaluation flows at serving scale, on the default
 megakernel route and on the composed route, every result checked against
 the port's eager numpy executor; adaptive re-planning (observe ->
-calibrate -> re-plan, `AdaptiveConfig`) and the multi-tenant data-flow
-engine (`serve.dataflow.DataflowEngine`) on the same kernels; and token
+calibrate -> re-plan, `AdaptiveConfig`), the multi-tenant data-flow
+engine (`serve.dataflow.DataflowEngine`) and the sharded executor
+(`core.distributed`, 8 shards on the card) on the same kernels; and token
 serving — Engine ->
 Model.prefill / decode_step — at full width and depth for three models:
 qwen3-0.6b with the flash-attention kernel, rwkv6-3b with the rwkv6_scan
@@ -87,6 +89,20 @@ more lines each:
            join_swaps builds and evicts nothing, launches per kernel; then
            a timed run on a second engine sharing the warm cache: req/s,
            p50 / p99 latency, coalesced share, truncations, serve_vs_solo
+  mesh     the sharded executor on 8 shards of the card
+           (optimize(root, Ctx(dop=8)), use_kernels=True, megakernel
+           route): q15 (6M lineitem rows), q7 (1M), clickstream (16M) on
+           both wires (overlap_slices 1 and 4): execute_distributed and a
+           cold and a warm DistributedPlan.run_device equal eager, the
+           wires byte-identical, no build on a warm step, every kernel call
+           against its plain version, each data-plane kernel launched;
+           routes per shard against the local plan's, the wire counters
+           beside cost.wire_profile(dop=8), warm step ms of mesh K=1, mesh
+           K=4 and the local CompiledPlan in turns, a profiled warm K=4
+           step, peak memory; the combiner acceptance at 1,048,576 rows
+           (>= 3x fewer wire rows); q15_drift at 6M rows served on the mesh
+           through DistributedPlan(stats_store=) with a swap, every batch
+           equal to eager
   serve    qwen3-0.6b (28 layers, d_model 1024, f32 weights, bf16
            activations, attn_impl="flash") from a seeded generator; 8
            requests of 1024-2048 prompt tokens and 32 greedy new tokens
@@ -186,6 +202,12 @@ UNDER_HINT = 0.001
 ADAPTIVE_ROUNDS = 21   # warm steps of each plan, taken in turns
 # multi-tenant serving: the launcher's four tenants and engine config
 TENANT_ROWS, TENANT_REQUESTS, COALESCE = 4096, 64, 16
+
+# the sharded executor: 8 shards on the one card, both wires; the combiner
+# acceptance at 2^20 rows; q15_drift served on the mesh
+MESH_SHARDS, WIRES, MESH_ROUNDS = 8, (1, 4), 11
+COMBINER_ROWS = 1_048_576
+MESH_DRIFT_SEEDS, MESH_DRIFT_BATCHES = 3, 6
 
 # token serving: qwen3-0.6b at full width and depth
 SERVE_ARCH = "qwen3-0.6b"
@@ -1870,6 +1892,283 @@ def phase_adaptive(res: dict, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the sharded executor: 8 shards on the one card
+# ---------------------------------------------------------------------------
+def _same_bits(a, b) -> bool:
+    """Two global batches with equal validity and column bits."""
+    return set(a.columns) == set(b.columns) \
+        and _bitwise_equal(a.valid, b.valid) \
+        and all(_bitwise_equal(a.columns[f], b.columns[f]) for f in a.columns)
+
+
+def _wire(stats) -> dict:
+    return {"wire_rows": stats.wire_rows, "wire_bytes": stats.wire_bytes,
+            "collectives": stats.collectives, "broadcasts": stats.broadcasts,
+            "dispatches": stats.dispatches, "slices": stats.slices}
+
+
+def _mesh_flow(res: dict, name: str, dev, total: dict) -> None:
+    """One flow on MESH_SHARDS shards, both wires: the checked runs (every
+    kernel call against its plain version, execute_distributed and a cold
+    and a warm DistributedPlan.run_device against eager, the wires byte
+    for byte, no build on the warm step, the wire counted once a build),
+    then the warm steps in turns against the local CompiledPlan and one
+    profiled warm K=4 step."""
+    from repro_torch.core import distributed as TD
+    from repro_torch.core import executor
+    from repro_torch.core.cost import seed_source_stats, wire_profile
+    from repro_torch.core.optimizer import optimize
+    from repro_torch.core.physical import Ctx
+    from repro_torch.core.pipeline import ExecutableCache
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    root, b = _flow(name)
+    ref = executor.execute(root, b)
+    plan = optimize(root, Ctx(dop=MESH_SHARDS), include_commutes=False
+                    ).best.plan
+    local = optimize(root).best.compile(use_kernels=True, device=dev)
+    t_prep = time.perf_counter() - t
+    cache = ExecutableCache()
+    dps = {k: TD.DistributedPlan(plan, mesh_shards=MESH_SHARDS,
+                                 overlap_slices=k, use_kernels=True,
+                                 cache=cache, device=dev) for k in WIRES}
+    stats = TD.shuffle_stats()
+    staged = dps[1].bind(b)
+    outs, wires = {}, {}
+    with Checker() as chk:
+        ops.reset_launches()
+        for k, dp in dps.items():
+            stats.clear()
+            once = TD.execute_distributed(plan, b, mesh_shards=MESH_SHARDS,
+                                          overlap_slices=k, use_kernels=True,
+                                          device=dev)
+            once_wire = _wire(stats)
+            stats.clear()
+            cold = dp.run_device(staged)
+            wires[k] = _wire(stats)
+            builds = cache.stats().traces
+            outs[k] = dp.run_device(staged)
+            torch.cuda.synchronize()
+            if cache.stats().traces != builds or _wire(stats) != wires[k] \
+                    or once_wire != wires[k]:
+                raise AssertionError(
+                    f"mesh {name} K={k}: the warm step built "
+                    f"{cache.stats().traces - builds} executables; wire "
+                    f"one-shot {once_wire}, cold {wires[k]}, after the warm "
+                    f"step {_wire(stats)}")
+            _all_equal("mesh", f"{name} K={k} execute_distributed / cold / "
+                       f"warm run_device", [once, cold, outs[k]], [ref] * 3)
+            if not _same_bits(cold, outs[k]):
+                raise AssertionError(f"mesh {name} K={k}: the warm step's "
+                                     f"bits differ from the cold step's")
+        launches = {k: ops.LAUNCHES[k] for k in DATA_KERNELS}
+    if chk.failures:
+        raise AssertionError(f"mesh {name}: kernel calls disagree with their "
+                             f"plain versions: {chk.failures}")
+    if not _same_bits(outs[1], outs[4]):
+        raise AssertionError(f"mesh {name}: the K=1 and K=4 wires differ")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k, v in launches.items():
+        total[k] += v
+    lm = local.bind_device(b)
+    local.run_device(lm)
+    steps = {"mesh_k1": lambda: dps[1].run_device(staged),
+             "mesh_k4": lambda: dps[4].run_device(staged),
+             "local": lambda: local.run_device(lm)}
+    timing = _in_turns(steps, MESH_ROUNDS)
+    prof = _profiled_step(steps["mesh_k4"])
+    idle = max(0.0, 1 - prof["device_busy_us"] / (timing["mesh_k4"][1] * 1e3))
+    # the model at the flow's declared scale, and priced at the bound rows
+    model = {"declared": wire_profile(plan, dop=MESH_SHARDS),
+             "bound": wire_profile(plan, dop=MESH_SHARDS,
+                                   stats_memo=seed_source_stats(
+                                       root, {n: v.capacity
+                                              for n, v in b.items()}, {}))}
+    res["mesh"]["flows"][name] = {
+        "rows": FLOW_ROWS[name], "routes_per_shard": dps[4]._last_routes,
+        "routes_local": local._last_routes, "launches": launches,
+        "kernel_calls": len(chk.calls), "wire": wires,
+        "wire_profile": model, "step_ms": timing, "profile": prof,
+        "idle_share": idle, "peak_gb": peak_gb,
+        "out_rows": outs[4].to_record_batch().capacity}
+    say("mesh", f"{name} {FLOW_ROWS[name]} {FLOW_SOURCE[name]} rows on "
+        f"{MESH_SHARDS} shards (data + eager + optimize {t_prep:.1f}s): "
+        f"ships {[st.ship for st in dps[4].stages]}; routes per shard "
+        f"{dps[4]._last_routes}, the local plan's {local._last_routes}; "
+        f"execute_distributed and cold / warm run_device equal eager on "
+        f"both wires, K=1 and K=4 byte-identical, no build on a warm step; "
+        f"launches {launches}; kernel calls ({len(chk.calls)}, each held "
+        f"against its plain version) all agree; peak memory "
+        f"{peak_gb:.2f} GB")
+    for k in WIRES:
+        say("mesh", f"{name} K={k} wire (counted once a build, equal for "
+            f"execute_distributed and the cold step): {wires[k]}")
+    for scale, edges in model.items():
+        say("mesh", f"{name} cost.wire_profile(dop={MESH_SHARDS}) at the "
+            f"{scale} rows (valid rows the model prices; the wire ships "
+            f"capacity slots): " + "; ".join(
+                f"{e['op']} {e['ship']} rows {e['rows']:.0f} bytes "
+                f"{e['bytes']:.0f}" for e in edges))
+    for k, (q1, m, q3) in timing.items():
+        say("mesh", f"{name} warm run_device {k}: median of {MESH_ROUNDS} "
+            f"{m:.3f} ms (quartiles {q1:.3f} / {q3:.3f})")
+    say("mesh", f"{name} profiled warm K=4 step: {prof['device_kernels']} "
+        f"device kernels, busy {prof['device_busy_us']:.0f} us, idle share "
+        f"{idle:.3f} against the median; top {prof['top']}")
+    del staged, lm, outs
+    torch.cuda.empty_cache()
+
+
+def _combiner_check(res: dict, dev) -> None:
+    """tests/test_split_reduce.py's combiner acceptance at COMBINER_ROWS on
+    8 shards with the kernels: the split plan ships >= 3x fewer wire rows
+    than the unsplit one, integer aggregates equal, both equal eager."""
+    from repro_torch.core import distributed as TD
+    from repro_torch.core import executor, flow as F
+    from repro_torch.core.operators import Hints
+    from repro_torch.core.optimizer import optimize
+    from repro_torch.core.physical import Ctx
+    from repro_torch.core.record import Schema, batch_from_dict
+
+    n = COMBINER_ROWS
+    src = F.source("I", Schema.of(k=np.int64, v=np.int64, w=np.float64),
+                   num_records=n)
+
+    def agg(g, out):
+        out.emit(g.keys().set("s", g.sum("v")).set("avg", g.mean("w")))
+
+    root = F.reduce_(src, ["k"], agg, name="Agg",
+                     hints=Hints(distinct_keys=64))
+    rng = np.random.default_rng(11)
+    b = {"I": batch_from_dict({"k": rng.integers(0, 64, n),
+                               "v": rng.integers(-100, 100, n),
+                               "w": rng.uniform(0, 1, n)})}
+    ref = executor.execute(root, b)
+    opt = optimize(root, Ctx(dop=MESH_SHARDS))
+    if ".pre" not in opt.best.order():
+        raise AssertionError(f"mesh combiner: best plan {opt.best.order()}")
+    unsplit = next(rp for rp in opt.ranked if ".pre" not in rp.order())
+    stats = TD.shuffle_stats()
+    outs, wire = {}, {}
+    with Checker() as chk:
+        for what, plan in (("split", opt.best.plan),
+                           ("unsplit", unsplit.plan)):
+            stats.clear()
+            outs[what] = TD.execute_distributed(
+                plan, b, mesh_shards=MESH_SHARDS, use_kernels=True,
+                device=dev)
+            wire[what] = stats.wire_rows
+            if not outs[what].equivalent(ref, atol=1e-4) \
+                    or stats.collectives != 1:
+                raise AssertionError(f"mesh combiner {what}: not equal to "
+                                     f"eager, or {stats.collectives} sites")
+    if chk.failures:
+        raise AssertionError(f"mesh combiner: kernel calls disagree with "
+                             f"their plain versions: {chk.failures}")
+    for f in ("k", "s"):
+        if sorted(np.asarray(outs["split"][f]).tolist()) != \
+                sorted(np.asarray(outs["unsplit"][f]).tolist()):
+            raise AssertionError(f"mesh combiner: {f} differs")
+    ratio = wire["unsplit"] / wire["split"]
+    if ratio < 3.0:
+        raise AssertionError(f"mesh combiner: wire ratio {ratio:.2f} < 3")
+    res["mesh"]["combiner"] = {"rows": n, "wire_rows": wire, "ratio": ratio}
+    say("mesh", f"combiner, {n} rows, 64 keys, {MESH_SHARDS} shards: wire "
+        f"rows split {wire['split']} / unsplit {wire['unsplit']} = "
+        f"{ratio:.1f}x (>= 3); integer aggregates equal; both equal eager")
+
+
+def _mesh_adaptive(res: dict, dev) -> None:
+    """q15_drift at 6M lineitem rows (hint 1.0, data 0.04) served on 8
+    shards through `DistributedPlan.run_device(stats_store=)`, with the
+    reference mesh test's loop: when the drift score passes 0.5 the hints
+    are calibrated from the store and a new regime's plan is swapped in.
+    Every batch equals eager; at least one swap; then the shipped and the
+    swapped plan's warm steps in turns."""
+    from repro_torch.configs import flows
+    from repro_torch.core import distributed as TD
+    from repro_torch.core import executor
+    from repro_torch.core.cost import StatsStore, calibrate_hints, drift_score
+    from repro_torch.core.optimizer import optimize
+    from repro_torch.core.physical import Ctx
+    from repro_torch.core.pipeline import ExecutableCache, semantic_key
+
+    n = FLOW_ROWS["q15"]
+    root, make = flows.q15_drift(hint_selectivity=DRIFT_HINT)
+    batches = [make(n, seed=s, true_sel=DRIFT_SEL)
+               for s in range(MESH_DRIFT_SEEDS)]
+    refs = [executor.execute(root, b) for b in batches]
+    staged = [TD.bind_global(root, b, MESH_SHARDS, dev) for b in batches]
+    cache = ExecutableCache()
+
+    def handle(flow):
+        return TD.DistributedPlan(
+            optimize(flow, Ctx(dop=MESH_SHARDS), include_commutes=False),
+            mesh_shards=MESH_SHARDS, use_kernels=True, cache=cache,
+            device=dev)
+
+    cur, store, swaps, swap_at = root, StatsStore(), 0, None
+    shipped = dp = handle(cur)
+    served = []
+    with Checker() as chk:
+        for t in range(MESH_DRIFT_BATCHES):
+            k = t % MESH_DRIFT_SEEDS
+            served.append((k, dp.run_device(staged[k], stats_store=store)))
+            if drift_score(cur, store) > 0.5:
+                cal = calibrate_hints(root, store, prior_weight=0.0)
+                if semantic_key(cal) != semantic_key(cur):
+                    cur, store = cal, StatsStore()
+                    dp = handle(cur)
+                    swaps += 1
+                    swap_at = t if swap_at is None else swap_at
+        torch.cuda.synchronize()
+    if chk.failures:
+        raise AssertionError(f"mesh adaptive: kernel calls disagree with "
+                             f"their plain versions: {chk.failures}")
+    _all_equal("mesh", "adaptive batch", [o for _, o in served],
+               [refs[k] for k, _ in served])
+    if swaps < 1:
+        raise AssertionError("mesh adaptive: drift never swapped the plan")
+    hint = {m.name: m for m in cur.iter_nodes()}[
+        "FilterShipdate"].hints.selectivity
+    timing = _in_turns({"shipped": lambda: shipped.run_device(staged[0]),
+                        "swapped": lambda: dp.run_device(staged[0])},
+                       MESH_ROUNDS)
+    res["mesh"]["adaptive"] = {"rows": n, "batches": len(served),
+                               "swaps": swaps, "swap_after_batch": swap_at,
+                               "post_swap_hint": hint, "step_ms": timing}
+    say("mesh", f"q15_drift {n} lineitem rows on {MESH_SHARDS} shards, hint "
+        f"{DRIFT_HINT} vs true {DRIFT_SEL}: {len(served)} batches served "
+        f"through DistributedPlan(stats_store=), {swaps} swap(s) (after "
+        f"batch {swap_at}) to filter hint {hint:.4g}; every batch equals "
+        f"eager; kernel calls ({len(chk.calls)}) all agree; warm steps in "
+        f"turns, median (quartiles): " + "; ".join(
+            f"{k} {m:.3f} ms ({q1:.3f} / {q3:.3f})"
+            for k, (q1, m, q3) in timing.items()))
+    del staged
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(res: dict, dev) -> None:
+    """The sharded executor on MESH_SHARDS shards of the one card:
+    q15 (6M lineitem rows), q7 (1M) and clickstream (16M) on both wires
+    (`_mesh_flow`), each data-plane kernel launched over the three flows;
+    the combiner acceptance; q15_drift served adaptively on the mesh."""
+    res["mesh"] = {"shards": MESH_SHARDS, "flows": {}}
+    total = {k: 0 for k in DATA_KERNELS}
+    for name in ("q15", "q7", "clickstream"):
+        _mesh_flow(res, name, dev, total)
+    _kernels_launched("mesh", total)
+    res["mesh"]["launches"] = total
+    say("mesh", f"launches over the three flows' checked runs: {total}")
+    _combiner_check(res, dev)
+    _mesh_adaptive(res, dev)
+
+
 def _calibrated(root, make, dev) -> tuple:
     """A stationary tenant's flow with honest hints: a few of its own
     batches observed offline on its own optimized plan and calibrated
@@ -2649,8 +2948,8 @@ def main(argv) -> int:
 
     # `--only probe,flash,...`: the build and the named kernel checks
     # alone, for a short run while a kernel changes; `dataflow` adds the
-    # flows, timing and profile phases, `adaptive` and `serving` those
-    # phases (no token serving); no result line
+    # flows, timing and profile phases, `adaptive`, `serving` and `mesh`
+    # those phases (no token serving); no result line
     only = None
     if len(argv) == 2 and argv[0] == "--only":
         only = set(argv[1].split(","))
@@ -2685,6 +2984,9 @@ def main(argv) -> int:
         if only is not None and "serving" in only:
             phase = "serving"
             phase_serving(res, dev)
+        if only is not None and "mesh" in only:
+            phase = "mesh"
+            phase_mesh(res, dev)
         if only is not None:
             say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
             os.makedirs(OUT_DIR, exist_ok=True)
@@ -2705,6 +3007,12 @@ def main(argv) -> int:
         phase_adaptive(res, dev)
         phase = "serving"
         phase_serving(res, dev)
+        torch.cuda.empty_cache()
+        phase = "mesh"
+        phase_mesh(res, dev)
+        for k in kernels:  # the mesh path's own counts beside the main path's
+            if k["name"] in res["mesh"]["launches"]:
+                k["mesh_launches"] = res["mesh"]["launches"][k["name"]]
         torch.cuda.empty_cache()
         phase = "serve"
         kernels.append(phase_serve(res, dev))

@@ -96,8 +96,8 @@ def _row_bytes(node) -> int:
     return max(total, 8) + 1  # +1: the validity mask
 
 
-def plan_routes(stages: Sequence, src_caps,
-                vmem_bytes: Optional[int] = None) -> Optional[tuple]:
+def plan_routes(stages: Sequence, src_caps, vmem_bytes: Optional[int] = None,
+                require_forward: bool = False) -> Optional[tuple]:
     """Partition a lowered stage list into megakernel spans and solo stages.
 
     Returns a tuple of `("mega", i, j)` (stages[i:j] fused) and
@@ -112,10 +112,13 @@ def plan_routes(stages: Sequence, src_caps,
     * the running resident-bytes estimate (inputs + a same-width output
       bound per stage, from the operator schemas) fits `vmem_bytes`
       (default `SPAN_BUDGET_BYTES`; the name is the reference's, whose
-      budget is the TPU's VMEM).
+      budget is the TPU's VMEM);
+    * with `require_forward` (the sharded per-shard walk), every span
+      stage ships all inputs `forward` — collectives stay at solo-stage
+      inputs, so every shard runs the same span.
 
-    Deterministic in (stages, src_caps): every retrace of one source
-    signature computes identical routes.
+    Deterministic in (stages, src_caps): every shard and every retrace of
+    one source signature computes identical routes.
     """
     n = len(stages)
     if n < 2:
@@ -137,7 +140,10 @@ def plan_routes(stages: Sequence, src_caps,
         st = stages[k]
         if not _stage_fusable(st):
             return False
-        return not any(cap_of(r) % 8 or cap_of(r) < 8 for r in st.inputs)
+        if any(cap_of(r) % 8 or cap_of(r) < 8 for r in st.inputs):
+            return False
+        return not (require_forward
+                    and any(s != "forward" for s in (st.ship or ())))
 
     def resident(k: int) -> int:
         st = stages[k]

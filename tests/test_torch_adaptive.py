@@ -10,8 +10,7 @@ Queue 3 item 1's flow).
 The reference's `test_run_device_adaptive_rejects_donation` has no twin:
 the port takes no `donate` anywhere (PyTorch has no buffer donation);
 `test_adaptive_rerun_leaves_bound_inputs_unchanged` holds what donation's
-refusal protected.  `test_distributed_observation_aggregates_global_counts`
-waits for the sharded executor (ROADMAP.md Queue 1 item 8)."""
+refusal protected."""
 
 from __future__ import annotations
 
@@ -568,6 +567,60 @@ def test_swap_reoptimization_keeps_the_attribute_set():
     assert cp.swaps == 1
     assert {n.name for n in cp.flow.iter_nodes()} == \
         {n.name for n in node.iter_nodes()}
+
+
+# ---------------------------------------------------------------------------
+# Distributed observation: counts summed over the shards feed the same store
+# ---------------------------------------------------------------------------
+def _store_rows(store) -> tuple:
+    return (store.source_rows(),
+            {k: (o.rows_in, o.rows_out, o.groups) for k, o in store.stages()})
+
+
+@pytest.fixture(scope="module")
+def q15_observed():
+    """q15 at 1,200 rows and the store the reference's one-device
+    `execute_distributed` fills from it."""
+    from repro.core.distributed import execute_distributed as jexecute
+    from repro.core.physical import Ctx as JCtx
+
+    jroot, make = JAX.flows.q15()
+    jb = make(1200, seed=3)
+    want = jcost.StatsStore()
+    jexecute(joptimize(jroot, JCtx(dop=1), include_commutes=False).best.plan,
+             jb, stats_store=want)
+    return {n: b.columns for n, b in jb.items()}, want
+
+
+@pytest.mark.parametrize("shards", [None, 8])
+def test_distributed_observation_aggregates_global_counts(q15_observed,
+                                                          shards):
+    """The reference's test of the same name, on the default mesh (one
+    shard) and on 8 shards: the store holds the GLOBAL counts, the same
+    as the reference's one-device run records."""
+    from repro_torch.core.distributed import execute_distributed
+    from repro_torch.core.physical import Ctx
+
+    data, want = q15_observed
+    troot = TORCH.flows.q15()[0]
+    tb = bind(TORCH, data)
+    res = toptimize(troot, Ctx(dop=shards or 1), include_commutes=False)
+    store = tcost.StatsStore()
+    out = execute_distributed(res.best.plan, tb, stats_store=store,
+                              mesh_shards=shards, device="cpu")
+    assert out.equivalent(texecutor.execute(troot, tb), atol=1e-4)
+    src = store.source_rows()
+    assert src["lineitem"] == pytest.approx(1200.0)
+    assert any(k[-1].startswith("AggRevenue") for k, _ in store.stages())
+    (filt,) = [o for k, o in store.stages() if k[-1] == "FilterShipdate"]
+    assert filt.ewma_out / filt.ewma_in[0] == pytest.approx(0.04, rel=0.5)
+    if shards is None:
+        assert _store_rows(store) == _store_rows(want)
+    else:  # the split plan's stages differ; sources and the filter agree
+        (jfilt,) = [o for k, o in want.stages() if k[-1] == "FilterShipdate"]
+        assert src == want.source_rows()
+        assert (filt.rows_in, filt.rows_out) == (jfilt.rows_in,
+                                                  jfilt.rows_out)
 
 
 # ---------------------------------------------------------------------------

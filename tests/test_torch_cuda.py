@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain torch version,
-the data-flow main path with the kernels against the eager executor, and
-the served models' kernel paths against their plain paths.
+the data-flow main path with the kernels against the eager executor, the
+sharded executor on 8 shards against the port on the CPU, and the served
+models' kernel paths against their plain paths.
 
 Marked `cuda`; every test skips without a CUDA device (the kernels have no
 CPU mode).  Imports no JAX, so it runs on a machine that has only the port:
@@ -213,6 +214,79 @@ def test_cuda_main_path_matches_eager(cuda, name):
     ref = executor.execute(root, b)
     assert out.equivalent(ref)
     assert cp.run_device(cp.bind_device(b)).to_record_batch().equivalent(ref)
+
+
+def _mesh_step(name, n, k, dev, cache=None):
+    """One 8-shard `DistributedPlan` step of `name` at `n` rows with the
+    kernels, in `cache` (a fresh one by default): (global output batch,
+    launches, eager rows)."""
+    from repro_torch.core.distributed import DistributedPlan
+    from repro_torch.core.physical import Ctx
+    from repro_torch.core.pipeline import ExecutableCache
+
+    root, make = flows.FLOWS[name]()
+    b = make(n, seed=2)
+    plan = optimize(root, Ctx(dop=8), include_commutes=False).best.plan
+    dp = DistributedPlan(plan, mesh_shards=8, overlap_slices=k,
+                         use_kernels=True,
+                         cache=ExecutableCache() if cache is None else cache,
+                         device=dev)
+    staged = dp.bind(b)
+    tops.reset_launches()
+    out = dp.run_device(staged)
+    launches = dict(tops.LAUNCHES)
+    return out, launches, executor.execute(root, b)
+
+
+def _host_bits(t: torch.Tensor) -> np.ndarray:
+    t = t.cpu()
+    if t.dtype == torch.float64:
+        t = t.view(torch.int64)
+    return t.numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_cuda_mesh_matches_cpu_port_slot_by_slot(cuda, k):
+    """q15 on 8 shards on the card (spans, repartitions and the join probe
+    through the kernels) equals the port on the CPU slot by slot:
+    validity and integers exactly, float sums within 1e-9 relative (the
+    scan kernel's summation order).  Both handles share one executable
+    cache, and each runs on its own device."""
+    from repro_torch.core.pipeline import ExecutableCache
+
+    cache = ExecutableCache()
+    got, launches, ref = _mesh_step("q15", 48_000, k, cuda, cache)
+    want, _, _ = _mesh_step("q15", 48_000, k, "cpu", cache)
+    assert got.device.type == "cuda" and want.device.type == "cpu"
+    assert cache.stats().traces == 2
+    for kname in ("sorted_probe", "segmented_scan", "span_compact",
+                  "span_segment"):
+        assert launches[kname] > 0, launches
+    assert torch.equal(got.valid.cpu(), want.valid)
+    v = want.valid
+    for f, w in want.columns.items():
+        g = got.columns[f].cpu()
+        if w.dtype.is_floating_point:
+            np.testing.assert_allclose(g[v].numpy(), w[v].numpy(),
+                                       rtol=1e-9, err_msg=f)
+        else:
+            assert torch.equal(g[v], w[v]), f
+    assert got.to_record_batch().equivalent(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q15", "clickstream"])
+def test_cuda_mesh_wires_are_byte_identical(cuda, name):
+    """The serial and the sliced wire give byte-identical global batches on
+    the card (clickstream broadcasts, q15 repartitions), equal to eager."""
+    one, _, ref = _mesh_step(name, 48_000, 1, cuda)
+    four, _, _ = _mesh_step(name, 48_000, 4, cuda)
+    assert torch.equal(one.valid, four.valid)
+    for f in one.columns:
+        assert np.array_equal(_host_bits(one.columns[f]),
+                              _host_bits(four.columns[f]))
+    assert four.to_record_batch().equivalent(ref)
 
 
 @pytest.mark.cuda
