@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only dataflow      # build + flows, timing, profile
     python3 chip_smoke.py --only adaptive,serving   # build + those phases
     python3 chip_smoke.py --only mesh          # build + the sharded executor
+    python3 chip_smoke.py --only flash,serve_moe,serve_mixtral,serve_vlm,serve_encdec
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
@@ -18,8 +19,10 @@ engine (`serve.dataflow.DataflowEngine`) and the sharded executor
 serving — Engine ->
 Model.prefill / decode_step — at full width and depth for three models:
 qwen3-0.6b with the flash-attention kernel, rwkv6-3b with the rwkv6_scan
-kernel and recurrentgemma-2b with the linear_scan kernel.  Phases, one or
-more lines each:
+kernel and recurrentgemma-2b with the linear_scan kernel; and the moe, vlm
+and encdec families with the flash-attention kernel at full width:
+qwen2-moe-a2.7b (full depth), mixtral-8x22b (4 of 56 layers),
+phi-3-vision-4.2b and whisper-tiny.  Phases, one or more lines each:
 
   device   the card's name and power limit (nvidia-smi), first line
   build    the seven kernels built from the checkout with nvcc (one nvcc
@@ -37,9 +40,13 @@ more lines each:
            keys); segmented_scan, span_compact and span_segment (up to 32
            keys) one device kernel a call, as the profiler counts;
            flash
-           attention at the reference test's seven shapes and the served
-           shapes (as the prefill lays them out, [B,T,H,D] memory), timed
-           against the plain version and SDPA, with a bound; the probe's
+           attention at the reference test's seven shapes, at head dim 96
+           (both dtypes, causal and windowed) and the served shapes (as
+           the prefill lays them out, [B,T,H,D] memory: qwen3-0.6b's two
+           chunks, phi-3-vision's first at head dim 96, whisper-tiny's
+           encoder and its decoder's prefill and decode cross-attention,
+           non-causal over 1,500 frames), timed against the plain version
+           and SDPA, with a bound; the probe's
            and flash's rows carry the profiler's device time beside the
            CUDA-event time;
            rwkv6_scan and linear_scan at the reference test's shapes, at
@@ -124,6 +131,29 @@ more lines each:
            served bf16 activations, no farther from the float32 logits
            than twice the plain path; the profiled decode step as for
            qwen3-0.6b
+  serve_moe, serve_mixtral, serve_vlm, serve_encdec
+           qwen2-moe-a2.7b (24 layers, 60 experts top-4 + 4 shared, bf16
+           weights), mixtral-8x22b (d_model 6144, 8 experts top-2, window
+           4096, bf16 weights, cut to 4 layers), phi-3-vision-4.2b (32
+           layers, head dim 96, f32 weights) and whisper-tiny (4 + 4
+           layers over 1,500 audio frames, f32 weights), bf16 activations,
+           attn_impl="flash", seeded weights drawn in place (peak memory
+           right after init); the same 8 requests through the Engine
+           (phi-3-vision as text, as the reference's Engine serves it),
+           whisper through Model.prefill with seeded audio frames [4,
+           1500, 384] and 32 greedy decode steps a chunk: every flash call
+           held against the plain attention, the launches counted (one a
+           prefill layer; whisper also one an encoder layer and one a
+           cross-attention a prefill and decode step), the MoE prefill's
+           capacity-dropped (token, k) share; the timed run and peak
+           memory; the first chunk's prefill logits against plain
+           attention on the same weights (phi-3-vision also with seeded
+           img_embeds [4, 144, 3072]) as the recurrent phases hold theirs:
+           within LOGIT_TOL with float32 activations, and with bf16 ones
+           the kernel path no farther from the float32 logits than twice
+           the plain path (the MoE paths all routed as the float32 plain
+           path; each routing itself, the share routed alike and the
+           jump are reported); the profiled decode step
 
 The line before the last is a JSON object of the kernels' numbers, the last
 `{"ok": true, "device": {...}}`.  Any failed phase, a missing CUDA device or
@@ -223,6 +253,19 @@ ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 LOGIT_TOL = 5e-2
 # token serving through the recurrent families, same requests and engine
 RECURRENT_ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
+# token serving through the moe, vlm and encdec families, same requests,
+# bf16 activations and attn_impl="flash": qwen2-moe with bf16 parameters
+# to fit (~14.3B of them), mixtral-8x22b (~141B, fits in no dtype) at full
+# width cut to 4 of its 56 layers with bf16 parameters; phi-3-vision and
+# whisper-tiny at full size, as the registry gives them
+FAMILY_PHASES = {
+    "serve_moe": ("qwen2-moe-a2.7b", dict(param_dtype="bfloat16")),
+    "serve_mixtral": ("mixtral-8x22b", dict(param_dtype="bfloat16",
+                                            n_layers=4)),
+    "serve_vlm": ("phi-3-vision-4.2b", {}),
+    "serve_encdec": ("whisper-tiny", {}),
+}
+IMG_SEED, AUDIO_SEED = 1, 2   # the seeded image prefix and audio frames
 SCAN_KERNEL = {"rwkv6": "rwkv6_scan", "hybrid": "linear_scan"}
 # rwkv6_scan against the sequential plain recurrence on the same inputs:
 # float32 outputs to tests/test_kernels.py's 3e-4 (summation order only);
@@ -256,6 +299,13 @@ ATTN_TEST_SHAPES = [
     ((1, 2, 2, 64, 64, 128), False, None, torch.float32),
     ((1, 4, 2, 1, 128, 64), True, None, torch.float32),
     ((1, 1, 1, 256, 256, 64), True, 128, torch.bfloat16),
+]
+# head dim 96 (phi-3-vision), which runs at the padded width 128 in bf16,
+# in both dtypes, causal and windowed
+ATTN_D96_SHAPES = [
+    ((1, 4, 2, 200, 200, 96), True, None, torch.float32),
+    ((1, 2, 2, 333, 333, 96), True, 64, torch.float32),
+    ((1, 2, 2, 333, 333, 96), True, 64, torch.bfloat16),
 ]
 
 
@@ -668,19 +718,29 @@ def _close(got, want, tol) -> tuple:
 
 def _flash_kernel_checks(res: dict, dev) -> None:
     """The flash kernel against its plain version and SDPA at the reference
-    test's seven shapes and at the two shapes the serve phase gives it."""
+    test's seven shapes, at head dim 96, at the two shapes the serve phase
+    gives it, at phi-3-vision's first prefill (head dim 96) and at
+    whisper-tiny's three non-causal shapes (the encoder, the decoder
+    prefill's cross-attention, a decode step's cross-attention)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
 
     cfg = get_config(SERVE_ARCH)
     lens = [len(p) for p in serve_prompts(cfg.vocab)]
+    chunks = [max(lens[i:i + SERVE_SLOTS])
+              for i in range(0, len(lens), SERVE_SLOTS)]
     served = [((SERVE_SLOTS, cfg.n_heads, cfg.kv_heads, t, t, cfg.head_dim),
-               True, None, torch.bfloat16)
-              for t in (max(lens[i:i + SERVE_SLOTS])
-                        for i in range(0, len(lens), SERVE_SLOTS))]
+               True, None, torch.bfloat16) for t in chunks]
+    vlm = get_config(FAMILY_PHASES["serve_vlm"][0])
+    wh = get_config(FAMILY_PHASES["serve_encdec"][0])
+    heads = (SERVE_SLOTS, wh.n_heads, wh.kv_heads)
+    served += [((SERVE_SLOTS, vlm.n_heads, vlm.kv_heads, chunks[0], chunks[0],
+                 vlm.head_dim), True, None, torch.bfloat16)] + [
+        (heads + (t, wh.n_audio_frames, wh.head_dim), False, None,
+         torch.bfloat16) for t in (wh.n_audio_frames, chunks[0], 1)]
     g = torch.Generator().manual_seed(3)
     rows = []
-    cases = [(c, False) for c in ATTN_TEST_SHAPES] + [
+    cases = [(c, False) for c in ATTN_TEST_SHAPES + ATTN_D96_SHAPES] + [
         (ATTN_TEST_SHAPES[0][:3] + (torch.bfloat16,), True)] + [
         (c, True) for c in served]
     for (shape, causal, window, dt), strided in cases:
@@ -2541,9 +2601,8 @@ class StepTimer:
         return False
 
 
-def _chunk_tokens(prompts) -> torch.Tensor:
-    """The engine's first chunk, left-padded with token 0 as it pads."""
-    chunk = prompts[:SERVE_SLOTS]
+def _chunk_tokens(chunk) -> torch.Tensor:
+    """A chunk of prompts, left-padded with token 0 as the engine pads."""
     tmax = max(len(p) for p in chunk)
     toks = np.zeros((len(chunk), tmax), np.int64)
     for i, p in enumerate(chunk):
@@ -2693,7 +2752,7 @@ def phase_serve(res: dict, dev) -> dict:
     # prefill logits: kernel path against plain attention on the same weights
     plain = make_model(cfg.with_(attn_impl="xla"), dev).load_params(
         model.state_dict())
-    toks = _chunk_tokens(prompts).to(dev)
+    toks = _chunk_tokens(prompts[:SERVE_SLOTS]).to(dev)
     state = model.init_decode_state(toks.shape[0], SERVE_MAX_SEQ)
     lf, state = model.prefill({"tokens": toks}, state)
     lp, _ = plain.prefill({"tokens": toks},
@@ -2861,7 +2920,7 @@ def phase_serve_recurrent(res: dict, dev, arch: str) -> dict:
     # with float32 activations, where nothing rounds to bf16, and (2) with
     # the served bf16 activations, the kernel path no farther from the
     # float32 logits than twice the plain path is
-    toks = _chunk_tokens(prompts).to(dev)
+    toks = _chunk_tokens(prompts[:SERVE_SLOTS]).to(dev)
     b = toks.shape[0]
 
     def prefill(m, use_kernel):
@@ -2938,6 +2997,345 @@ def phase_serve_recurrent(res: dict, dev, arch: str) -> dict:
     return entry
 
 
+class MoeRoute:
+    """Wraps `moe.route` while a model runs: records each call's routing
+    (probabilities, top-k weights, top-k experts) in `calls`, or, given
+    the `calls` of another run (`replay`), returns those instead, call by
+    call (recording its own in `calls` still).  A bf16 rounding that flips
+    one token's k-th expert shifts the queue ranks behind it and with them
+    which pairs the capacity drops, a jump no tolerance bounds; replaying
+    the plain path's routing on the kernel path leaves the attention
+    kernel the only difference between the two."""
+
+    def __init__(self, replay=None):
+        self.calls, self._replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._real = real = moe.route
+        replay = iter(self._replay) if self._replay is not None else None
+
+        def call(p, cfg, xf):
+            got = real(p, cfg, xf)
+            self.calls.append(got)
+            return got if replay is None else next(replay)
+
+        moe.route = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._real
+        return False
+
+
+def _logit_checks(phase, serve, model, batch, lf, lp, kernel_route,
+                  plain_route) -> None:
+    """A family phase's prefill last-token logits, kernel path (`lf`)
+    against plain attention (`lp`) on the same weights.  Held as the
+    recurrent phases hold theirs, since with bf16 activations two correct
+    attentions, each rounding its outputs to bf16 once, drift apart over
+    the depth past LOGIT_TOL (phi-3-vision's 32 layers: ~0.08): (1) with
+    float32 activations the kernel path (`flash_f32`) within LOGIT_TOL of
+    plain attention; (2) with the served bf16 activations the kernel path
+    no farther from the float32 logits than twice the plain path.  The
+    float32 passes read the weights cast at each use (a float32 copy of
+    qwen2-moe's 28.6 GB of bf16 weights would not fit beside them).
+
+    MoE: each path routing itself, a one-ulp bf16 difference flips some
+    token's k-th expert, and the queue ranks behind it shift which pairs
+    the capacity drops: a jump no tolerance bounds.  The kernel and plain
+    paths' own routings (`kernel_route`, `plain_route`, from `MoeRoute`)
+    give the share of (token, k) pairs they route alike, and both checks
+    run every path on the float32 plain path's routing (replayed)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import _tree
+
+    cfg, toks = model.cfg, batch["tokens"]
+    moe = cfg.family == "moe"
+    if moe:
+        same = sum(int((a[2] == b[2]).sum())
+                   for a, b in zip(kernel_route, plain_route))
+        serve.update(
+            free_logit_max_abs_err=float((lf - lp).abs().max()),
+            routing_agree=same / sum(c[2].numel() for c in plain_route))
+        say(phase, f"prefill last-token logits, each path routing itself: "
+            f"max abs err {serve['free_logit_max_abs_err']:.4g}; the two "
+            f"paths pick the same expert for {serve['routing_agree']:.4f} "
+            f"of the (token, k) pairs over the {cfg.n_layers} layers")
+    raw = _tree(model)
+    raw["unembed"] = raw["embed" if cfg.tied_embeddings else "unembed"]
+
+    def prefill32(impl, replay=None):
+        c32 = cfg.with_(dtype="float32", attn_impl=impl)
+        with torch.inference_mode(), MoeRoute(replay) as route:
+            out, _ = T.prefill(raw, c32, batch, T.init_decode_state(
+                c32, toks.shape[0], SERVE_MAX_SEQ, toks.device))
+        return out, route.calls
+
+    def prefill16(plain, replay):
+        with MoeRoute(replay):
+            if plain:
+                return _plain_prefill(model, batch)[0]
+            return model.prefill(batch, model.init_decode_state(
+                toks.shape[0], SERVE_MAX_SEQ))[0]
+
+    l32, route32 = prefill32("xla")
+    lf32, _ = prefill32("flash", route32 if moe else None)
+    if moe:
+        lf, lp = prefill16(False, route32), prefill16(True, route32)
+    torch.cuda.synchronize()
+    routed = ", routed alike" if moe else ""
+    _compare_logits(phase, serve, lf32, l32, toks,
+                    f"plain attention, both with float32 activations{routed}")
+    err_k = float((lf - l32).abs().max())
+    err_p = float((lp - l32).abs().max())
+    serve.update(bf16_logit_max_abs_err=float((lf - lp).abs().max()),
+                 bf16_kernel_vs_f32=err_k, bf16_plain_vs_f32=err_p)
+    say(phase, f"prefill last-token logits with bf16 activations"
+        f"{', both routed as the float32 path' if moe else ''}: kernel vs "
+        f"plain max abs err {serve['bf16_logit_max_abs_err']:.4g}; against "
+        f"the float32 logits the kernel path is {err_k:.4g} off, the plain "
+        f"path {err_p:.4g}")
+    if not (torch.isfinite(lf).all() and err_k <= 2 * err_p):
+        raise AssertionError(f"bf16 prefill logits: the kernel path is "
+                             f"{err_k:g} from the float32 logits, more than "
+                             f"twice the plain path's {err_p:g}")
+
+
+def _encdec_generate(model, prompts, frames) -> list:
+    """whisper's serving loop, which the Engine cannot run (it sends tokens
+    only): each chunk of SERVE_SLOTS prompts, left-padded as the engine
+    pads, through `Model.prefill` with the seeded audio frames, then
+    SERVE_NEW greedy `decode_step`s.  Each request's SERVE_NEW + 1 tokens."""
+    out = []
+    for i in range(0, len(prompts), SERVE_SLOTS):
+        toks = _chunk_tokens(prompts[i:i + SERVE_SLOTS]).to(frames.device)
+        b = toks.shape[0]
+        logits, state = model.prefill(
+            {"tokens": toks, "audio_frames": frames[:b]},
+            model.init_decode_state(b, SERVE_MAX_SEQ))
+        tok = logits[:, -1:].argmax(-1)
+        got = [tok]
+        for _ in range(SERVE_NEW):
+            logits, state = model.decode_step(tok, state)
+            tok = logits[:, -1:].argmax(-1)
+            got.append(tok)
+        out += torch.cat(got, 1).cpu().tolist()
+    return out
+
+
+def _plain_prefill(model, batch: dict):
+    """The same prefill with plain attention on the same weights: the
+    model's config swapped for attn_impl="xla" for the call (a second model
+    would hold a second copy of the weights)."""
+    cfg = model.cfg
+    model.cfg = cfg.with_(attn_impl="xla")
+    try:
+        return model.prefill(batch, model.init_decode_state(
+            batch["tokens"].shape[0], SERVE_MAX_SEQ))
+    finally:
+        model.cfg = cfg
+
+
+def _flash_launches(cfg, prefills: int, decode_steps: int = 0) -> int:
+    """flash calls of `prefills` prefills and `decode_steps` decode steps:
+    one per layer a prefill (attention_prefill), plus for the encdec one
+    per encoder layer and one cross-attention per decoder layer a prefill
+    and a decode step (self-attention decode is plain)."""
+    if cfg.family == "encdec":
+        return (prefills * (cfg.n_enc_layers + 2 * cfg.n_layers)
+                + decode_steps * cfg.n_layers)
+    return prefills * cfg.n_layers
+
+
+def phase_serve_family(res: dict, dev, phase: str) -> dict:
+    """Token serving through the moe, vlm or encdec family at full width
+    (FAMILY_PHASES) with the flash kernel: qwen2-moe-a2.7b and
+    mixtral-8x22b (4 layers) through the Engine, phi-3-vision-4.2b through
+    the Engine (text only, as the reference's Engine serves it) and one
+    `Model.prefill` with a seeded image prefix, whisper-tiny through
+    `Model.prefill` with seeded audio frames and greedy decode steps.
+    Launch counts are set to zero just before each checked run and read
+    just after it.  Returns the flash launches of the phase's runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.serve.engine import Engine, Request
+
+    arch, over = FAMILY_PHASES[phase]
+    cfg = get_config(arch, attn_impl="flash", **over)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    model = make_model(cfg, dev).init(gen)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    init_peak = torch.cuda.max_memory_allocated() - base
+    what = f"{cfg.n_layers} layers"
+    if cfg.family == "moe":
+        what += (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+                 f"{cfg.n_shared_experts} shared (expert ff "
+                 f"{cfg.d_expert_ff or cfg.d_ff})")
+    elif cfg.family == "encdec":
+        what += (f" + {cfg.n_enc_layers} encoder layers over "
+                 f"{cfg.n_audio_frames} audio frames")
+    say(phase, f"{cfg.name}: {what}, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.kv_heads} x {cfg.head_dim}, vocab {cfg.vocab} "
+        f"(padded {cfg.padded_vocab}), {model.param_count():,} "
+        f"{str(cfg.p_dtype)[6:]} parameters ({weights / 1e9:.2f} GB), "
+        f"{str(cfg.act_dtype)[6:]} activations, attn_impl={cfg.attn_impl}; "
+        f"init on the card {time.perf_counter() - t:.1f}s, peak memory "
+        f"right after init {init_peak / 1e9:.2f} GB")
+    prompts = serve_prompts(cfg.vocab)
+    n_chunks = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    serve: dict = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                   "param_dtype": str(cfg.p_dtype)[6:],
+                   "weights_gb": weights / 1e9,
+                   "init_peak_gb": init_peak / 1e9}
+    g = torch.Generator(device=dev)
+    frames = torch.randn((SERVE_SLOTS, cfg.n_audio_frames, cfg.d_model),
+                         generator=g.manual_seed(AUDIO_SEED), device=dev) \
+        if cfg.family == "encdec" else None
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=SERVE_NEW) for p in prompts]
+
+    # the main path, every kernel call checked
+    engine = None if frames is not None else Engine(
+        model, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+        seed=SERVE_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    with AttnChecker() as chk, MoeRoute() as route:
+        ops.reset_launches()
+        if cfg.family == "encdec":
+            out = _encdec_generate(model, prompts, frames)
+            want = _flash_launches(cfg, n_chunks, n_chunks * SERVE_NEW)
+        else:
+            reqs = engine.generate(requests())
+            out = [r.out_tokens for r in reqs]
+            want = _flash_launches(cfg, n_chunks)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+    if chk.failures:
+        raise AssertionError(f"flash calls disagree with the plain "
+                             f"attention: {chk.failures}")
+    if launches["flash_attention"] != want or any(
+            n for k, n in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, expected "
+                             f"{want} and no other kernel: {launches}")
+    n_new = SERVE_NEW + (cfg.family == "encdec")
+    if any(len(o) != n_new or not all(0 <= x < cfg.padded_vocab for x in o)
+           for o in out):
+        raise AssertionError(f"bad outputs: {[len(o) for o in out]}")
+    shapes = sorted({c[:2] for c in chk.calls})
+    say(phase, f"checked run: {SERVE_REQUESTS} requests, prompts "
+        f"{[len(p) for p in prompts]}, {n_new} new tokens each "
+        f"({'Model.prefill with audio frames + decode_step' if frames is not None else 'Engine'}); "
+        f"{len(chk.calls)} flash calls at (q, k) shapes {shapes}, each "
+        f"within atol=rtol={ATTN_TOL[torch.bfloat16]:g} of the plain "
+        f"attention (max abs err {chk.max_err:.4g}); launches {launches}")
+    serve.update(launches=launches["flash_attention"],
+                 flash_max_abs_err=chk.max_err)
+    if cfg.family == "moe":  # the capacity drops of the prefills' routing
+        from repro_torch.models import moe
+
+        dropped = pairs = 0
+        busiest = 0.0  # the most a prefill's busiest expert took, / n
+        for _, _, topi in route.calls:
+            n = topi.shape[0]
+            if n > SERVE_SLOTS:
+                count = torch.bincount(topi.reshape(-1),
+                                       minlength=cfg.n_experts)
+                over = count - moe.capacity(cfg, n)
+                dropped += int(over.clamp(min=0).sum())
+                pairs += topi.numel()
+                busiest = max(busiest, int(count.max()) / n)
+        serve.update(prefill_drop_share=dropped / pairs,
+                     prefill_busiest_expert=busiest)
+        say(phase, f"capacity drops at prefill: {dropped:,} of {pairs:,} "
+            f"(token, k) pairs ({serve['prefill_drop_share']:.4f}); the "
+            f"busiest expert of a layer took up to {busiest:.3f} of a "
+            f"chunk's tokens (capacity before its rounding up to 256: "
+            f"{cfg.capacity_factor * cfg.top_k / cfg.n_experts:.3f})")
+    del route
+
+    # the timed run, no checks
+    if cfg.family == "encdec":
+        with StepTimer(model) as tm:
+            t = time.perf_counter()
+            timed = _encdec_generate(model, prompts, frames)
+            wall = time.perf_counter() - t
+        dec = tm.ms["decode_step"]
+        n_tok = sum(len(o) for o in timed)
+        serve.update(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                     prefill_ms=tm.ms["prefill"],
+                     decode_ms_per_step_median=float(np.median(dec)),
+                     decode_ms_per_step_mean=float(np.mean(dec)),
+                     decode_steps=len(dec),
+                     tokens_equal_checked_run=timed == out)
+        say(phase, f"timed run: {n_tok} tokens in {wall:.3f}s = "
+            f"{serve['tokens_per_s']:.1f} tokens/s; prefill ms per chunk "
+            f"{[round(x, 2) for x in tm.ms['prefill']]}; decode "
+            f"{serve['decode_ms_per_step_median']:.3f} ms per step median "
+            f"({SERVE_SLOTS} tokens a step, {len(dec)} steps); greedy tokens "
+            f"equal to the checked run's: {timed == out}")
+    else:
+        timed, dec = _timed_serve(phase, engine, model, requests, reqs)
+        serve.update(timed)
+    serve["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(phase, f"peak memory over the checked and timed runs "
+        f"{serve['peak_memory_gb']:.2f} GB (weights {weights / 1e9:.2f} GB)")
+
+    # prefill logits: kernel path against plain attention on the same
+    # weights, on the first chunk (the vlm with its image prefix as well,
+    # the prefix's flash launches counted apart)
+    toks = _chunk_tokens(prompts[:SERVE_SLOTS]).to(dev)
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["audio_frames"] = frames[:toks.shape[0]]
+    with AttnChecker(), MoeRoute() as kernel_route:
+        lf, state = model.prefill(batch, model.init_decode_state(
+            toks.shape[0], SERVE_MAX_SEQ))
+    with MoeRoute() as plain_route:
+        lp, _ = _plain_prefill(model, batch)
+    torch.cuda.synchronize()
+    _logit_checks(phase, serve, model, batch, lf, lp, kernel_route.calls,
+                  plain_route.calls)
+    del kernel_route, plain_route
+    if cfg.family == "vlm":
+        img = torch.randn((toks.shape[0], cfg.n_img_tokens, cfg.d_model),
+                          generator=g.manual_seed(IMG_SEED), device=dev)
+        batch = {"tokens": toks, "img_embeds": img}
+        with AttnChecker() as chk:
+            ops.reset_launches()
+            li, _ = model.prefill(batch, model.init_decode_state(
+                toks.shape[0], SERVE_MAX_SEQ))
+            torch.cuda.synchronize()
+            img_launches = dict(ops.LAUNCHES)
+        if chk.failures or img_launches["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"image prefill: flash {img_launches}, "
+                                 f"failures {chk.failures}")
+        lpi, _ = _plain_prefill(model, batch)
+        say(phase, f"with img_embeds {list(img.shape)} over the first "
+            f"{cfg.n_img_tokens} positions:")
+        shown = {}
+        _logit_checks(phase, shown, model, batch, li, lpi, [], [])
+        serve["img_prefill"] = dict(shown, launches=cfg.n_layers,
+                                    flash_max_abs_err=chk.max_err)
+        serve["launches"] += cfg.n_layers
+        del li, lpi
+    del lp
+    _profile_decode(phase, serve, model, lf, state, dec)
+    res[phase] = serve
+    return {"flash_attention": serve["launches"]}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2948,8 +3346,9 @@ def main(argv) -> int:
 
     # `--only probe,flash,...`: the build and the named kernel checks
     # alone, for a short run while a kernel changes; `dataflow` adds the
-    # flows, timing and profile phases, `adaptive`, `serving` and `mesh`
-    # those phases (no token serving); no result line
+    # flows, timing and profile phases, `adaptive`, `serving`, `mesh` and
+    # the FAMILY_PHASES names (serve_moe, serve_mixtral, serve_vlm,
+    # serve_encdec) those phases; no result line
     only = None
     if len(argv) == 2 and argv[0] == "--only":
         only = set(argv[1].split(","))
@@ -2987,6 +3386,10 @@ def main(argv) -> int:
         if only is not None and "mesh" in only:
             phase = "mesh"
             phase_mesh(res, dev)
+        for phase in FAMILY_PHASES:
+            if only is not None and phase in only:
+                torch.cuda.empty_cache()
+                phase_serve_family(res, dev, phase)
         if only is not None:
             say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
             os.makedirs(OUT_DIR, exist_ok=True)
@@ -3020,6 +3423,12 @@ def main(argv) -> int:
             torch.cuda.empty_cache()
             phase = f"serve_{arch}"
             kernels.append(phase_serve_recurrent(res, dev, arch))
+        flash = next(k for k in kernels if k["name"] == "flash_attention")
+        flash["phase_launches"] = {"serve": flash["launches"]}
+        for phase in FAMILY_PHASES:  # each path's own count beside serve's
+            torch.cuda.empty_cache()
+            flash["phase_launches"][phase] = phase_serve_family(
+                res, dev, phase)["flash_attention"]
     except Exception:
         say(phase, "FAILED\n" + traceback.format_exc())
         return 1

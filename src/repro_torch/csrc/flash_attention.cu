@@ -39,7 +39,8 @@
 //      * TMA — one producer thread keeps the loads in flight: Q, then K and
 //        V tiles into a two-stage ring in shared memory (128-byte swizzle,
 //        64 columns per box; D = 128 is two boxes, D = 32 is zero-filled
-//        to 64), each stage with its own full and empty `mbarrier`s for K
+//        to 64 and D = 96 to 128: zero columns add nothing to Q K^T, and
+//        P V's padded output columns are never stored), each stage with its own full and empty `mbarrier`s for K
 //        and V, so a K tile is reloaded as soon as S is computed.  The
 //        tensor maps carry the tensors' strides: the prefill's q/k/v —
 //        [B,T,H,D] memory viewed as [B,H,T,D] — are read where they lie,
@@ -470,7 +471,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      __nv_bfloat16* __restrict__ o, Strides os, int b,
                      int hq, int hkv, int t, int s, float scale_log2,
                      int causal, int window) {
-  constexpr int DP = D < 64 ? 64 : D;  // TMA zero-fills the padding
+  constexpr int DP = D <= 64 ? 64 : 128;  // TMA zero-fills the padding
   constexpr int NCH = DP / 64;         // 64-column chunks of a row
   using L = Smem<DP>;
   extern __shared__ __align__(1024) uint8_t ws_smem[];
@@ -810,7 +811,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
   if (!err) err = tensor_map(&mk, k, D, s, hkv, b, st + 3, kBN);
   if (!err) err = tensor_map(&mv, v, D, s, hkv, b, st + 6, kBN);
   if (err) return err;
-  constexpr int bytes = Smem<(D < 64 ? 64 : D)>::kBytes;
+  constexpr int bytes = Smem<(D <= 64 ? 64 : 128)>::kBytes;
   static int sms = 0;  // the attribute and the SM count, once per process
   if (sms == 0) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -852,7 +853,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 bfloat16, 1 float32.  d: 32, 64 or 128.  window < 0: none.
+// dtype: 0 bfloat16, 1 float32.  d: 32, 64, 96 or 128.  window < 0: none.
 // strides: 12 element strides, (batch, head, row) of q, k, v and o; the
 // head dimension is contiguous and every row 16-byte aligned.  The f32
 // kernel takes contiguous tensors only.  Hq % Hkv == 0.
@@ -868,6 +869,7 @@ extern "C" int repro_flash_attention(int dtype, int d, const void* q,
   switch (d) {
     case 32: return launch<32>(dtype, q, k, v, o, b, hq, hkv, t, s, strides, scale, causal, window, st);
     case 64: return launch<64>(dtype, q, k, v, o, b, hq, hkv, t, s, strides, scale, causal, window, st);
+    case 96: return launch<96>(dtype, q, k, v, o, b, hq, hkv, t, s, strides, scale, causal, window, st);
     case 128: return launch<128>(dtype, q, k, v, o, b, hq, hkv, t, s, strides, scale, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -43,32 +43,34 @@ def columns(result) -> dict[str, np.ndarray]:
 
 def model_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
     """The reference's parameter pytree (nested dicts of numpy arrays) ->
-    `{dotted path: tensor}` for `Model.load_params`.  Dense and rwkv6 trees
-    stack each leaf under "layers" on a leading axis of `cfg.n_layers`,
-    unstacked here into `layers.{i}.…`.  The hybrid tree has "super", one
+    `{dotted path: tensor}` for `Model.load_params`.  Dense, moe, vlm and
+    rwkv6 trees stack each leaf under "layers" on a leading axis of
+    `cfg.n_layers`, unstacked here into `layers.{i}.…`; the encdec tree
+    stacks "enc_layers" on `cfg.n_enc_layers` and "dec_layers" on
+    `cfg.n_layers`, unstacked alike.  The hybrid tree has "super", one
     dict per kind of `block_pattern` with each leaf stacked on the number
     of super-blocks, and "tail", a list of unstacked dicts: super-block s,
     kind j becomes layer `s·len(block_pattern) + j` and tail item i the
     layer after all super-blocks' plus i.  Every other leaf keeps its
-    path."""
-    if cfg.family not in ("dense", "rwkv6", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 9)")
+    path, top-level arrays (`img_proj`, `enc_pos`, `dec_pos`) included."""
     out: dict[str, torch.Tensor] = {}
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+              "dec_layers": cfg.n_layers}
+
+    def leaf(v):
+        return torch.from_numpy(np.array(v, copy=True))
 
     def walk(prefix: str, tree: Mapping, layer=None):
         for k, v in tree.items():
             if isinstance(v, Mapping):
                 walk(f"{prefix}{k}.", v, layer)
             else:
-                out[prefix + k] = torch.from_numpy(np.array(
-                    v if layer is None else v[layer], copy=True))
+                out[prefix + k] = leaf(v if layer is None else v[layer])
 
     for k, v in params.items():
-        if k == "layers":
-            for i in range(cfg.n_layers):
-                walk(f"layers.{i}.", v, i)
+        if k in stacks:
+            for i in range(stacks[k]):
+                walk(f"{k}.{i}.", v, i)
         elif k == "super":
             width = len(cfg.block_pattern)
             for j, kind in enumerate(v):
@@ -78,6 +80,8 @@ def model_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
             first = cfg.n_layers - len(v)
             for i, sub in enumerate(v):
                 walk(f"layers.{first + i}.", sub)
-        else:
+        elif isinstance(v, Mapping):
             walk(f"{k}.", v)
+        else:
+            out[k] = leaf(v)
     return out

@@ -350,7 +350,7 @@ def probe_positions(keys_sorted: torch.Tensor, queries: torch.Tensor,
 # Flash attention
 # ---------------------------------------------------------------------------
 _ATTN_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 96, 128)
 
 
 def _row_strided(x: torch.Tensor) -> bool:
@@ -368,7 +368,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal / sliding-window GQA attention, q [B,Hq,T,D] and k/v
     [B,Hkv,S,D] -> [B,Hq,T,D] in q's dtype: one launch of the CUDA kernel
     (`csrc/flash_attention.cu`).  On the card it takes bf16 or float32
-    tensors with D in (32, 64, 128) and a window of at least 1.  bf16
+    tensors with D in (32, 64, 96, 128) and a window of at least 1.  bf16
     operands may be row-strided views (head dim contiguous, strides and
     base 16-byte aligned), such as [B,T,H,D] memory viewed as [B,H,T,D],
     and the bf16 output is [B,T,Hq,D] memory viewed as [B,Hq,T,D].  float32

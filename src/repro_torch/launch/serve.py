@@ -1,5 +1,6 @@
-"""Serving launcher: batched token generation for a dense, rwkv6 or hybrid
---arch, or the multi-tenant data-flow engine (DESIGN.md §11).
+"""Serving launcher: batched token generation for an --arch of any family
+(dense, moe, rwkv6, hybrid, vlm, encdec), or the multi-tenant data-flow
+engine (DESIGN.md §11).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --requests 8 --max-new 16 [--device cpu]
@@ -17,8 +18,13 @@ and the CUDA flash kernel runs only for a config that asks for
 `attn_impl="flash"`; the model leaves `use_kernel` unset, as the
 reference's launcher does, so the rwkv6 and RG-LRU recurrences take their
 plain paths.  Weights are drawn from a seeded generator, as the
-reference's launcher does; no checkpoint is read.  The moe, encdec and vlm
-families are not ported yet.
+reference's launcher does; no checkpoint is read.  The Engine sends each
+request's tokens only, as the reference's does: a vlm request is served
+as text alone (no `img_embeds`), and an encdec (whisper) prefill stops
+with a `ValueError` naming the missing `audio_frames`, where the
+reference's stops with a `KeyError`.  Whisper and the vlm's image prefix
+are reached through `Model.prefill` / `decode_step` with those inputs in
+the batch.
 """
 
 from __future__ import annotations

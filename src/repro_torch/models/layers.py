@@ -1,8 +1,9 @@
 """Shared model-plane layers: norms, RoPE, GQA attention (+cache), MLPs.
 
 Port of `repro.models.layers`.  Functional, as the reference: params are
-plain dicts of tensors, `init_*` build them from a `torch.Generator`, and
-the apply functions take (params, inputs).  Every matmul weight is read as
+plain dicts of tensors, `init_*` build them from a `torch.Generator` (or
+note their draws in a `Draws`, for a model to fill in place), and the
+apply functions take (params, inputs).  Every matmul weight is read as
 `p[name].to(x.dtype)`, as the reference casts it at each use; a tree whose
 weights were cast once beforehand (`transformer.cast_params`) makes those
 casts free and gives the same bits.  The reference's sharding hints
@@ -15,20 +16,36 @@ whole cache every step.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
 
-def _normal(g: Optional[torch.Generator], shape, scale: float, dtype,
-            device) -> torch.Tensor:
-    """float32 normal * scale, cast to `dtype`; uninitialised when `g` is
-    None (a model allocates first and fills from a generator later)."""
-    if g is None:
-        return torch.empty(shape, dtype=dtype, device=device)
-    x = torch.randn(shape, generator=g, device=g.device, dtype=torch.float32)
-    return (x * scale).to(dtype=dtype, device=device)
+class Draws(list):
+    """The normal draws a parameter tree asks for, in order.  An init
+    function given a `Draws` in place of a generator leaves each drawn leaf
+    uninitialised and notes it with its scale; `fill` then draws the leaves
+    from a generator one at a time, straight into place, with the numbers
+    the generator itself would have given the init function."""
+
+    @torch.no_grad()
+    def fill(self, g: torch.Generator) -> None:
+        for out, scale in self:
+            out.copy_(_draw(g, out.shape, scale))
+
+
+def _draw(g: torch.Generator, shape, scale: float) -> torch.Tensor:
+    return torch.randn(shape, generator=g, device=g.device,
+                       dtype=torch.float32) * scale
+
+
+def _normal(g, shape, scale: float, dtype, device) -> torch.Tensor:
+    """float32 normal * scale drawn from the generator `g`, cast to
+    `dtype`; uninitialised, and noted in `g`, when `g` is a `Draws`."""
+    if isinstance(g, Draws):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        g.append((out, scale))
+        return out
+    return _draw(g, shape, scale).to(dtype=dtype, device=device)
 
 
 def _init_dense(g, d_in, d_out, dtype, device, scale=None):
@@ -48,6 +65,19 @@ def rmsnorm(p, x, eps=1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +159,15 @@ def _attention(cfg, q, k, v, causal, window):
 
 
 def attention_block(p, cfg, x, positions, causal=True, window=None,
-                    use_rope=True):
-    """Full-sequence attention (training / forward)."""
+                    use_rope=True, kv_override=None):
+    """Full-sequence attention (training / forward / cross-attention).
+    `kv_override` = (k, v) [B,Hkv,S,D] attends to those keys and values
+    (the encoder's, for cross-attention) in place of x's own; x's k and v
+    projections are still computed, as the reference computes them."""
     b, t, d = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions, use_rope)
+    if kv_override is not None:
+        k, v = kv_override
     o = _attention(cfg, q, k, v, causal, window)
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
     return o @ p["wo"].to(x.dtype)

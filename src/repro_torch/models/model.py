@@ -3,11 +3,14 @@ forward / prefill / decode for an architecture config.
 
 Port of `repro.models.model`.  The reference's `Model` is a stateless
 wrapper that takes a parameter pytree at every call; here `Model` is an
-`nn.Module` holding the parameter tree (layers in an `nn.ModuleList`), so
-its `state_dict` keys are the tree's dotted paths (`layers.0.attn.wq`,
-`embed.table`; `interop.model_params` builds one from the reference's
-pytree).  The weights the passes read are cast once to the activation dtype
-at the first call after `init` / `load_params` (`transformer.cast_params`).
+`nn.Module` holding the parameter tree (dicts as submodules, layer lists
+as `nn.ModuleList`s, top-level tensors such as the vlm's `img_proj` and
+the encdec's `enc_pos` / `dec_pos` as parameters), so its `state_dict`
+keys are the tree's dotted paths (`layers.0.attn.wq`, `embed.table`,
+`dec_layers.1.cross_attn.wk`; `interop.model_params` builds one from the
+reference's pytree).  The weights the passes read are cast once to the
+activation dtype at the first call after `init` / `load_params`
+(`transformer.cast_params`).
 
 `use_kernel` is the reference transformer's switch, carried to `forward`
 and `prefill`: it sends the rwkv6 and RG-LRU recurrences to their kernels.
@@ -21,26 +24,41 @@ from typing import Mapping
 import torch
 from torch import nn
 
+from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
 
 
+def _register(module: nn.Module, tree: Mapping) -> None:
+    """Dicts become submodules, lists module lists and tensors parameters
+    (without gradients) of `module`."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            module.add_module(k, ParamTree(v))
+        elif isinstance(v, list):
+            module.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+        else:
+            module.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+
+def _tree(module: nn.Module):
+    """The nested dicts and lists of parameters `_register` made."""
+    if isinstance(module, nn.ModuleList):
+        return [_tree(m) for m in module]
+    out = {k: _tree(m) for k, m in module._modules.items()}
+    out.update(module._parameters)
+    return out
+
+
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: dicts become submodules and
-    tensors parameters (without gradients)."""
+    """A nested dict of tensors as a module."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
-        for k, v in tree.items():
-            if isinstance(v, Mapping):
-                self.add_module(k, ParamTree(v))
-            else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+        _register(self, tree)
 
     def tree(self) -> dict:
-        out = {k: m.tree() for k, m in self._modules.items()}
-        out.update(self._parameters)
-        return out
+        return _tree(self)
 
 
 class Model(nn.Module):
@@ -49,19 +67,22 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = torch.device(device)
         self.use_kernel = use_kernel
-        tree = T.init_params(None, cfg, self.device)
-        self.layers = nn.ModuleList(ParamTree(lp) for lp in tree.pop("layers"))
-        for k, v in tree.items():
-            self.add_module(k, ParamTree(v))
+        # every drawn leaf allocated, uninitialised, and noted for `init`
+        self._draws = L.Draws()
+        _register(self, T.init_params(self._draws, cfg, self.device))
         self._cast = None
 
     # -- parameters ---------------------------------------------------------
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
-        """Draw every parameter from `generator` (the reference's
-        distributions; the generator may live on the CPU or the card)."""
-        tree = T.init_params(generator, self.cfg, self.device)
-        return self.load_params(_flatten(tree))
+        """Draw the parameters of a new model from `generator` (the
+        reference's distributions; the generator may live on the CPU or
+        the card): leaf by leaf, straight into each parameter, with the
+        numbers `transformer.init_params(generator, ...)` would give, so
+        the weights exist once while they are drawn."""
+        self._draws.fill(generator)
+        self._cast = None
+        return self
 
     @torch.no_grad()
     def load_params(self, state: Mapping[str, torch.Tensor]) -> "Model":
@@ -73,10 +94,7 @@ class Model(nn.Module):
     def params(self) -> dict:
         """The parameter tree as the passes read it (cast once)."""
         if self._cast is None:
-            tree = {k: m.tree() for k, m in self.named_children()
-                    if k != "layers"}
-            tree["layers"] = [m.tree() for m in self.layers]
-            self._cast = T.cast_params(tree, self.cfg)
+            self._cast = T.cast_params(_tree(self), self.cfg)
         return self._cast
 
     def param_count(self) -> int:
@@ -85,36 +103,28 @@ class Model(nn.Module):
     # -- forward ------------------------------------------------------------
     @torch.inference_mode()
     def logits(self, batch: dict):
-        """(logits [B, T, V], aux loss) for batch['tokens'] [B, T]."""
+        """(logits [B, T, V], aux loss) for batch['tokens'] [B, T], with
+        batch['img_embeds'] (vlm) or batch['audio_frames'] (encdec)."""
         return T.forward(self.params(), self.cfg, batch["tokens"],
+                         img_embeds=batch.get("img_embeds"),
+                         audio_frames=batch.get("audio_frames"),
                          use_kernel=self.use_kernel)
 
     # -- serving ------------------------------------------------------------
-    def init_decode_state(self, batch: int, seq: int) -> list:
+    def init_decode_state(self, batch: int, seq: int):
         return T.init_decode_state(self.cfg, batch, seq, self.device)
 
     @torch.inference_mode()
-    def prefill(self, batch: dict, state: list):
-        """Fused full-prompt forward that fills the decode caches."""
+    def prefill(self, batch: dict, state):
+        """Fused full-prompt forward that fills the decode caches; the
+        batch carries 'img_embeds' / 'audio_frames' as `logits` takes
+        them."""
         return T.prefill(self.params(), self.cfg, batch, state,
                          use_kernel=self.use_kernel)
 
     @torch.inference_mode()
-    def decode_step(self, token, state: list):
+    def decode_step(self, token, state):
         return T.decode_step(self.params(), self.cfg, token, state)
-
-
-def _flatten(tree: Mapping, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            out.update(_flatten(v, f"{prefix}{k}."))
-        elif isinstance(v, list):
-            for i, item in enumerate(v):
-                out.update(_flatten(item, f"{prefix}{k}.{i}."))
-        else:
-            out[prefix + k] = v
-    return out
 
 
 def make_model(cfg: ModelConfig, device="cuda", use_kernel=False) -> Model:

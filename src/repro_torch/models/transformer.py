@@ -1,15 +1,17 @@
-"""Model assembly for the dense, rwkv6 and hybrid families: init, forward,
-prefill and the decode step.
+"""Model assembly for every family — dense, moe, rwkv6, hybrid, encdec and
+vlm: init, forward, prefill and the decode step.
 
-Port of those families' paths of `repro.models.transformer`.  Parameters
-are a dict tree as in the reference, but layers are a list of per-layer
-trees (the reference stacks them on a leading axis for `lax.scan`; its
-hybrid tree stacks each kind of a super-block and keeps the tail apart),
-and a decode state is a list of per-layer states: a KV cache for an
-attention layer, `{tm_shift, cm_shift, wkv}` for an rwkv6 layer and
-`{conv, h}` for an RG-LRU layer.  moe, encdec and vlm raise
-`NotImplementedError`: they are still to be ported (ROADMAP.md, Queue 1
-item 9).
+Port of `repro.models.transformer`.  Parameters are a dict tree as in the
+reference, but layers are a list of per-layer trees (the reference stacks
+them on a leading axis for `lax.scan`; its hybrid tree stacks each kind of
+a super-block and keeps the tail apart), and a decode state is a list of
+per-layer states: a KV cache for an attention layer, `{tm_shift,
+cm_shift, wkv}` for an rwkv6 layer and `{conv, h}` for an RG-LRU layer.
+The encdec (whisper) tree keeps two lists, `enc_layers` and `dec_layers`,
+and the top-level position tables `enc_pos` / `dec_pos`; its state is
+`{"self": [per-layer caches], "enc": the encoder output}`.  The vlm
+(phi-3-vision) tree is the dense one plus the top-level `img_proj`, which
+projects `img_embeds` over the first tokens of the sequence.
 
 `use_kernel` is the reference's switch: it sends the rwkv6 and RG-LRU
 recurrences of `forward` and `prefill` to their kernels (`kernels.ops`);
@@ -19,32 +21,26 @@ does.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RG
 from . import rwkv6 as RW
 from .config import ModelConfig
 
-FAMILIES = ("dense", "rwkv6", "hybrid")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port has the {', '.join(FAMILIES)} families (ROADMAP.md, "
-            f"Queue 1 item 9)")
+FAMILIES = ("dense", "moe", "rwkv6", "hybrid", "encdec", "vlm")
 
 
 def layer_kinds(cfg: ModelConfig) -> list:
-    """Each layer's kind in layer order: "dense", "rwkv6", or the hybrid's
+    """Each (decoder) layer's kind in layer order: "dense" (also the vlm's
+    layers), "moe", "rwkv6", "encdec", or the hybrid's
     `block_pattern[i % len]` ("rglru" / "attn")."""
     if cfg.family == "hybrid":
         pat = cfg.block_pattern
         return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+    if cfg.family == "vlm":
+        return ["dense"] * cfg.n_layers
     return [cfg.family] * cfg.n_layers
 
 
@@ -68,6 +64,13 @@ def init_dense_layer(g, cfg: ModelConfig, device):
             "mlp": _init_mlp(g, cfg, device)}
 
 
+def init_moe_layer(g, cfg: ModelConfig, device):
+    return {"ln1": L.init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
+            "attn": L.init_attention(g, cfg, device),
+            "ln2": L.init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
+            "moe": MOE.init_moe(g, cfg, device)}
+
+
 def init_hybrid_layer(g, cfg: ModelConfig, kind: str, device):
     """One layer of the hybrid: RG-LRU or local attention, then swiglu."""
     base = {"ln1": L.init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
@@ -80,37 +83,75 @@ def init_hybrid_layer(g, cfg: ModelConfig, kind: str, device):
     return base
 
 
+# -- enc-dec layers (whisper: layernorm + gelu mlp, no rope) -----------------
+def init_enc_layer(g, cfg: ModelConfig, device):
+    return {"ln1": L.init_layernorm(cfg.d_model, cfg.p_dtype, device),
+            "attn": L.init_attention(g, cfg, device),
+            "ln2": L.init_layernorm(cfg.d_model, cfg.p_dtype, device),
+            "mlp": L.init_gelu_mlp(g, cfg.d_model, cfg.d_ff, cfg.p_dtype,
+                                   device)}
+
+
+def init_dec_layer(g, cfg: ModelConfig, device):
+    return {"ln1": L.init_layernorm(cfg.d_model, cfg.p_dtype, device),
+            "self_attn": L.init_attention(g, cfg, device),
+            "ln_x": L.init_layernorm(cfg.d_model, cfg.p_dtype, device),
+            "cross_attn": L.init_attention(g, cfg, device),
+            "ln2": L.init_layernorm(cfg.d_model, cfg.p_dtype, device),
+            "mlp": L.init_gelu_mlp(g, cfg.d_model, cfg.d_ff, cfg.p_dtype,
+                                   device)}
+
+
 def init_layer(g, cfg: ModelConfig, kind: str, device):
     if kind == "dense":
         return init_dense_layer(g, cfg, device)
+    if kind == "moe":
+        return init_moe_layer(g, cfg, device)
     if kind == "rwkv6":
         return RW.init_rwkv_layer(g, cfg, device)
+    if kind == "encdec":
+        return init_dec_layer(g, cfg, device)
     return init_hybrid_layer(g, cfg, kind, device)
 
 
-def init_params(g: Optional[torch.Generator], cfg: ModelConfig,
-                device) -> dict:
-    """The parameter tree, drawn from `g` (uninitialised weights when `g`
-    is None).  Same distributions as the reference, other numbers: a
+def init_params(g, cfg: ModelConfig, device) -> dict:
+    """The parameter tree, drawn from the generator `g`, or left
+    uninitialised with every draw noted in order when `g` is a
+    `layers.Draws`.  Same distributions as the reference, other numbers: a
     `torch.Generator` is not a JAX key."""
-    check_family(cfg)
-    p: dict = {"embed": L.init_embedding(g, cfg.padded_vocab, cfg.d_model,
-                                         cfg.p_dtype, device),
-               "final_norm": L.init_rmsnorm(cfg.d_model, cfg.p_dtype, device)}
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+    d, pdt = cfg.d_model, cfg.p_dtype
+    norm = L.init_layernorm if cfg.family == "encdec" else L.init_rmsnorm
+    p: dict = {"embed": L.init_embedding(g, cfg.padded_vocab, d, pdt, device),
+               "final_norm": norm(d, pdt, device)}
     if not cfg.tied_embeddings:
-        p["unembed"] = L.init_embedding(g, cfg.padded_vocab, cfg.d_model,
-                                        cfg.p_dtype, device)
+        p["unembed"] = L.init_embedding(g, cfg.padded_vocab, d, pdt, device)
+    if cfg.family == "encdec":
+        p["enc_pos"] = L._normal(g, (cfg.n_audio_frames, d), 0.02, pdt,
+                                 device)
+        p["dec_pos"] = L._normal(g, (cfg.max_positions, d), 0.02, pdt,
+                                 device)
+        p["enc_layers"] = [init_enc_layer(g, cfg, device)
+                           for _ in range(cfg.n_enc_layers)]
+        p["dec_layers"] = [init_dec_layer(g, cfg, device)
+                           for _ in range(cfg.n_layers)]
+        return p
     p["layers"] = [init_layer(g, cfg, kind, device)
                    for kind in layer_kinds(cfg)]
+    if cfg.family == "vlm":
+        p["img_proj"] = L._init_dense(g, d, d, pdt, device)
     return p
 
 
-# leaves the reference reads in float32, never cast: norm scales, the
-# rwkv6 time-mix's token-shift and decay LoRAs and bonus, and the RG-LRU's
-# conv and gate weights and Lambda
-_KEEP = frozenset({"scale", "mix_base", "mix_lora_a", "mix_lora_b",
-                   "decay_base", "decay_lora_a", "decay_lora_b", "bonus_u",
-                   "conv_w", "conv_b", "w_a", "w_i", "lam"})
+# leaves the reference reads in float32, never cast: norm scales and the
+# LayerNorm's bias, the MoE router (made in float32 whatever param_dtype
+# is), the rwkv6 time-mix's token-shift and decay LoRAs and bonus, and the
+# RG-LRU's conv and gate weights and Lambda
+_KEEP = frozenset({"scale", "bias", "router", "mix_base", "mix_lora_a",
+                   "mix_lora_b", "decay_base", "decay_lora_a",
+                   "decay_lora_b", "bonus_u", "conv_w", "conv_b", "w_a",
+                   "w_i", "lam"})
 
 
 def cast_params(params: dict, cfg: ModelConfig) -> dict:
@@ -124,12 +165,14 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
     embeddings."""
     dt = cfg.act_dtype
 
-    def cast(tree):
-        return {k: cast(v) if isinstance(v, dict)
-                else (v if k in _KEEP else v.to(dt)) for k, v in tree.items()}
+    def cast(k, v):
+        if isinstance(v, dict):
+            return {kk: cast(kk, vv) for kk, vv in v.items()}
+        if isinstance(v, list):
+            return [cast(k, x) for x in v]
+        return v if k in _KEEP else v.to(dt)
 
-    out = {k: cast(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = [cast(lp) for lp in params["layers"]]
+    out = cast(None, params)
     out["unembed"] = params["embed" if cfg.tied_embeddings else "unembed"]
     return out
 
@@ -137,12 +180,21 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------
+def _ffn(p, cfg: ModelConfig, x):
+    """The second half of a dense or moe layer: (output, the MoE block's
+    aux loss, or None for an MLP)."""
+    if "moe" in p:
+        return MOE.moe_block(p["moe"], cfg, x)
+    return _mlp(p["mlp"], cfg, x), None
+
+
 def dense_layer(p, cfg: ModelConfig, x, positions, window=None):
+    """A dense or moe layer: (output, aux loss or None)."""
     h = L.attention_block(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                           positions, causal=True, window=window)
     x = x + h
-    h = _mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x + h
+    h, aux = _ffn(p, cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + h, aux
 
 
 def dense_layer_prefill(p, cfg: ModelConfig, x, positions, cache,
@@ -151,7 +203,7 @@ def dense_layer_prefill(p, cfg: ModelConfig, x, positions, cache,
                                    L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                                    positions, cache, window=window)
     x = x + h
-    h = _mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h, _ = _ffn(p, cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + h, cache
 
 
@@ -160,7 +212,7 @@ def dense_layer_decode(p, cfg: ModelConfig, x, cache, window=None):
                                   L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                                   cache, window=window)
     x = x + h
-    h = _mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h, _ = _ffn(p, cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + h, cache
 
 
@@ -189,40 +241,129 @@ def _hybrid_one(p, cfg: ModelConfig, kind: str, x, positions, state=None,
     return x + h, state
 
 
+def _dec_layer(p, cfg: ModelConfig, x, positions, enc, cache=None,
+               mode="train"):
+    """One whisper decoder layer: causal self-attention (no rope), then
+    cross-attention over the encoder output `enc`, then the gelu MLP.
+    mode: train (no cache) | prefill (fill it) | decode (step it)."""
+    xn = L.layernorm(p["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        h, cache = L.attention_decode(p["self_attn"], cfg, xn, cache,
+                                      use_rope=False)
+    elif mode == "prefill":
+        h, cache = L.attention_prefill(p["self_attn"], cfg, xn, positions,
+                                       cache, use_rope=False)
+    else:
+        h = L.attention_block(p["self_attn"], cfg, xn, positions,
+                              causal=True, use_rope=False)
+    x = x + h
+    xn = L.layernorm(p["ln_x"], x, cfg.norm_eps)
+    h = L.attention_block(p["cross_attn"], cfg, xn, positions, causal=False,
+                          use_rope=False,
+                          kv_override=_cross_kv(p["cross_attn"], cfg, enc))
+    x = x + h
+    h = L.gelu_mlp(p["mlp"], L.layernorm(p["ln2"], x, cfg.norm_eps))
+    return x + h, cache
+
+
+def _cross_kv(p, cfg: ModelConfig, enc):
+    """Project the encoder output to cross-attention K/V heads."""
+    b, s, _ = enc.shape
+    hkv, dh = cfg.kv_heads, cfg.head_dim
+    k = (enc @ p["wk"].to(enc.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
+    v = (enc @ p["wv"].to(enc.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
+    return k, v
+
+
+def encode(params, cfg: ModelConfig, audio_frames):
+    """The whisper encoder over precomputed frame embeddings [B, F, D] (the
+    conv frontend is a stub, as in the reference): non-causal
+    self-attention without rope, layernorm and the gelu MLP."""
+    dt = cfg.act_dtype
+    x = audio_frames.to(dt) + params["enc_pos"].to(dt)[None]
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params["enc_layers"]:
+        h = L.attention_block(lp["attn"], cfg,
+                              L.layernorm(lp["ln1"], x, cfg.norm_eps),
+                              positions, causal=False, use_rope=False)
+        x = x + h
+        x = x + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], x, cfg.norm_eps))
+    return x
+
+
+def _embed(params, cfg: ModelConfig, tokens, img_embeds=None):
+    """Token embeddings; for the vlm with `img_embeds` [B, N, D], their
+    projection replaces the first N positions (the reference's prefix)."""
+    dt = cfg.act_dtype
+    x = L.embed(params["embed"], tokens, dt)
+    if cfg.family == "vlm" and img_embeds is not None:
+        img = img_embeds.to(dt) @ params["img_proj"].to(dt)
+        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
+    return x
+
+
+def _audio(cfg: ModelConfig, audio_frames):
+    if audio_frames is None:
+        raise ValueError(f"{cfg.name} is an encdec model: it needs the "
+                         f"input audio_frames [B, {cfg.n_audio_frames}, "
+                         f"{cfg.d_model}] (the Engine sends tokens only)")
+    return audio_frames
+
+
 def _logits(params, cfg: ModelConfig, x):
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    norm = L.layernorm if cfg.family == "encdec" else L.rmsnorm
+    x = norm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["unembed"], x)
 
 
 # ---------------------------------------------------------------------------
 # Forward passes (params from `cast_params`)
 # ---------------------------------------------------------------------------
-def forward(params, cfg: ModelConfig, tokens, use_kernel=False):
-    """tokens [B, T] -> (logits [B, T, V], aux loss 0)."""
-    x = L.embed(params["embed"], tokens, cfg.act_dtype)
+def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
+            audio_frames=None, use_kernel=False):
+    """tokens [B, T] -> (logits [B, T, V], aux loss: the MoE blocks' summed
+    over layers, else 0)."""
+    x = _embed(params, cfg, tokens, img_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.family == "encdec":
+        enc = encode(params, cfg, _audio(cfg, audio_frames))
+        x = x + params["dec_pos"][positions].to(x.dtype)[None]
+        for lp in params["dec_layers"]:
+            x, _ = _dec_layer(lp, cfg, x, positions, enc)
+        return _logits(params, cfg, x), aux
     for kind, lp in zip(layer_kinds(cfg), params["layers"]):
-        if kind == "dense":
-            x = dense_layer(lp, cfg, x, positions, window=cfg.window)
+        if kind in ("dense", "moe"):
+            x, a = dense_layer(lp, cfg, x, positions, window=cfg.window)
+            if a is not None:
+                aux = aux + a
         elif kind == "rwkv6":
             x, _ = RW.rwkv_layer(lp, cfg, x, use_kernel=use_kernel)
         else:
             x, _ = _hybrid_one(lp, cfg, kind, x, positions,
                                use_kernel=use_kernel)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return _logits(params, cfg, x), aux
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, state: list,
-            use_kernel=False):
-    """batch['tokens'] [B, T] + a fresh decode state -> (last-token logits
+def prefill(params, cfg: ModelConfig, batch: dict, state, use_kernel=False):
+    """batch['tokens'] [B, T] (+ 'img_embeds' for the vlm, 'audio_frames'
+    for the encdec) and a fresh decode state -> (last-token logits
     [B, 1, V], the filled state).  One fused pass, no token-by-token
     replay."""
     tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, cfg.act_dtype)
+    x = _embed(params, cfg, tokens, batch.get("img_embeds"))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if cfg.family == "encdec":
+        enc = encode(params, cfg, _audio(cfg, batch.get("audio_frames")))
+        x = x + params["dec_pos"][positions].to(x.dtype)[None]
+        caches = state["self"]
+        for i, lp in enumerate(params["dec_layers"]):
+            x, caches[i] = _dec_layer(lp, cfg, x, positions, enc, caches[i],
+                                      mode="prefill")
+        state["enc"] = enc
+        return _logits(params, cfg, x[:, -1:]), state
     for i, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
-        if kind == "dense":
+        if kind in ("dense", "moe"):
             x, state[i] = dense_layer_prefill(lp, cfg, x, positions, state[i],
                                               window=cfg.window)
         elif kind == "rwkv6":
@@ -236,7 +377,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, state: list,
 
 def init_layer_state(cfg: ModelConfig, kind: str, batch: int, seq: int,
                      device):
-    if kind == "dense":
+    if kind in ("dense", "moe", "encdec"):
         return L.init_kv_cache(cfg, batch, seq, device, window=cfg.window)
     if kind == "rwkv6":
         return RW.init_rwkv_state(cfg, batch, device)
@@ -246,18 +387,30 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, seq: int,
     return RG.init_rglru_state(cfg, batch, device)
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, seq: int,
-                      device) -> list:
-    check_family(cfg)
-    return [init_layer_state(cfg, kind, batch, seq, device)
-            for kind in layer_kinds(cfg)]
+def init_decode_state(cfg: ModelConfig, batch: int, seq: int, device):
+    caches = [init_layer_state(cfg, kind, batch, seq, device)
+              for kind in layer_kinds(cfg)]
+    if cfg.family == "encdec":
+        return {"self": caches,
+                "enc": torch.zeros((batch, cfg.n_audio_frames, cfg.d_model),
+                                   dtype=cfg.act_dtype, device=device)}
+    return caches
 
 
-def decode_step(params, cfg: ModelConfig, token, state: list):
+def decode_step(params, cfg: ModelConfig, token, state):
     """token [B, 1] -> (logits [B, 1, V], the advanced state)."""
     x = L.embed(params["embed"], token, cfg.act_dtype)
+    if cfg.family == "encdec":
+        caches, enc = state["self"], state["enc"].to(x.dtype)
+        # the decoder position: the first layer's cache position
+        x = x + params["dec_pos"][caches[0]["pos"]].to(x.dtype)
+        zero = torch.zeros((1,), dtype=torch.long, device=x.device)
+        for i, lp in enumerate(params["dec_layers"]):
+            x, caches[i] = _dec_layer(lp, cfg, x, zero, enc, caches[i],
+                                      mode="decode")
+        return _logits(params, cfg, x), state
     for i, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
-        if kind == "dense":
+        if kind in ("dense", "moe"):
             x, state[i] = dense_layer_decode(lp, cfg, x, state[i],
                                              window=cfg.window)
         elif kind == "rwkv6":

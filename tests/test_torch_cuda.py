@@ -542,6 +542,8 @@ ATTN_SHAPES = [
     ((2, 16, 8, 1031, 1031, 128), True, None),   # prime T: ragged tiles
     ((1, 4, 2, 77, 200, 32), False, 50),
     ((1, 2, 1, 150, 40, 64), True, None),        # T > S: masked rows
+    ((1, 4, 2, 200, 200, 96), True, None),       # head dim 96 (phi-3)
+    ((2, 4, 4, 333, 333, 96), True, 64),
 ]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -578,6 +580,12 @@ FLASH_EDGES = [
     ((1, 2, 2, 190, 190, 128), True, 190, True),     # window >= S
     ((3, 6, 3, 65, 127, 32), False, 40, True),
     ((1, 4, 4, 1000, 1000, 128), False, None, True),
+    ((2, 32, 32, 300, 300, 96), True, None, True),   # phi-3-vision's heads
+    # whisper-tiny: the encoder over 1,500 frames, the decoder prefill's
+    # and a decode step's cross-attention, all non-causal
+    ((4, 6, 6, 1500, 1500, 64), False, None, True),
+    ((4, 6, 6, 300, 1500, 64), False, None, True),
+    ((4, 6, 6, 1, 1500, 64), False, None, True),
 ]
 
 
@@ -645,6 +653,36 @@ def test_cuda_engine_flash_matches_plain_attention(cuda):
                     max_new_tokens=5) for i in range(3)]
     Engine(flash, batch_slots=2, max_seq=128).generate(reqs)
     assert all(len(r.out_tokens) == 5 for r in reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+def test_cuda_moe_block_matches_cpu(cuda, tied):
+    # the routing, the capacity drop and the float32 combine on the card
+    # against the same block on the CPU; tied: every token picks experts 0
+    # and 1, 600 pairs each against a capacity of 512, so both drop the
+    # same 88 tokens' pairs
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=64,
+                      n_heads=4, d_ff=128, vocab=256, n_experts=4, top_k=2,
+                      n_shared_experts=1, d_expert_ff=32, dtype="float32")
+    g = torch.Generator().manual_seed(11)
+    p = moe.init_moe(g, cfg, "cpu")
+    if tied:
+        p["router"].zero_()
+    x = torch.randn((2, 300, 64), generator=g)
+    want, want_aux = moe.moe_block(p, cfg, x)
+    got, got_aux = moe.moe_block(
+        {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(cuda)) for k, v in p.items()},
+        cfg, x.to(cuda))
+    # float32 products on both (TF32 off for matmuls by default): the sums
+    # differ in order only
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5,
+                               atol=1e-7)
 
 
 # (B, H, T, Dk, Dv): the reference kernel test's three shapes

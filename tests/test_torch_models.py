@@ -31,6 +31,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as TL
 from repro_torch.models import make_model
+from repro_torch.models import transformer as TT
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import Engine, Request
 
@@ -319,7 +320,7 @@ def test_eos_stops_a_request(qwen_params):
 
 
 # ---------------------------------------------------------------------------
-# entry points and what is not ported
+# entry points and initialisation
 # ---------------------------------------------------------------------------
 def test_entry_points_default_to_the_card():
     from repro_torch.models.model import Model
@@ -328,11 +329,33 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(Model).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-tiny",
-                                  "phi-3-vision-4.2b"])
-def test_other_families_are_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_model(get_config(arch, reduced=True), CPU)
+def _paths(tree, prefix=""):
+    """{dotted path: tensor} of a parameter tree (dicts and layer lists)."""
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    out = {}
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_paths(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_draws_what_init_params_draws(arch):
+    # every registered arch builds on the CPU, and `Model.init` draws each
+    # leaf straight into its parameter: bit for bit the tree that
+    # `transformer.init_params` draws from the same seed (the weights the
+    # model drew before it filled leaf by leaf), in both parameter dtypes
+    for pdt in ("float32", "bfloat16"):
+        cfg = get_config(arch, reduced=True, param_dtype=pdt)
+        sd = make_model(cfg, CPU).init(
+            torch.Generator().manual_seed(7)).state_dict()
+        want = _paths(TT.init_params(torch.Generator().manual_seed(7), cfg,
+                                     CPU))
+        assert set(sd) == set(want)
+        for k, v in want.items():
+            assert sd[k].dtype == v.dtype and torch.equal(sd[k], v), k
 
 
 def test_launcher_serves_on_cpu(capsys):
