@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only adaptive,serving   # build + those phases
     python3 chip_smoke.py --only mesh          # build + the sharded executor
     python3 chip_smoke.py --only flash,serve_moe,serve_mixtral,serve_vlm,serve_encdec
+    python3 chip_smoke.py --only train         # build + the train phase
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
@@ -22,7 +23,11 @@ qwen3-0.6b with the flash-attention kernel, rwkv6-3b with the rwkv6_scan
 kernel and recurrentgemma-2b with the linear_scan kernel; and the moe, vlm
 and encdec families with the flash-attention kernel at full width:
 qwen2-moe-a2.7b (full depth), mixtral-8x22b (4 of 56 layers),
-phi-3-vision-4.2b and whisper-tiny.  Phases, one or more lines each:
+phi-3-vision-4.2b and whisper-tiny; and training — launch.train's path,
+Supervisor -> make_train_step (Model.loss, autograd, AdamW) fed by the
+data-flow TokenPipeline — for qwen3-0.6b at full width and depth, on
+which no kernel runs (the kernels raise under autograd).  Phases, one or
+more lines each:
 
   device   the card's name and power limit (nvidia-smi), first line
   build    the seven kernels built from the checkout with nvcc (one nvcc
@@ -154,6 +159,23 @@ phi-3-vision-4.2b and whisper-tiny.  Phases, one or more lines each:
            the plain path (the MoE paths all routed as the float32 plain
            path; each routing itself, the share routed alike and the
            jump are reported); the profiled decode step
+  train    qwen3-0.6b REDUCED in float32, TF32 off: one train step on the
+           card against the same step on the CPU (loss within 1e-5,
+           every gradient leaf within 1e-5 + 1e-4, the parameters after
+           AdamW within 1e-6); flash_attention, rwkv6_scan and
+           linear_scan raise under autograd with no launch; a supervised
+           run restarted from two injected failures against an
+           uninterrupted one (1e-6), saying whether deterministic
+           algorithms were on; then qwen3-0.6b FULL (f32 parameters and
+           AdamW moments, bf16 activations, plain attention), batch 8 x
+           512 from TokenPipeline, 12 steps under the Supervisor with one
+           final checkpoint in a temporary directory (its s and GB):
+           every loss and gradient norm finite, the first loss within 1.0
+           of ln(vocab), the card's batches equal the CPU's; median step
+           ms, tokens/s, peak memory; a step's parts (host, forward,
+           backward, AdamW) by CUDA events and under torch.profiler
+           (device busy, kernels, idle share, top kernels); 20 steps on
+           one batch at lr 1e-3 that must cut the loss by 1.0
 
 The line before the last is a JSON object of the kernels' numbers, the last
 `{"ok": true, "device": {...}}`.  Any failed phase, a missing CUDA device or
@@ -266,6 +288,18 @@ FAMILY_PHASES = {
     "serve_encdec": ("whisper-tiny", {}),
 }
 IMG_SEED, AUDIO_SEED = 1, 2   # the seeded image prefix and audio frames
+# training: qwen3-0.6b at full width and depth (float32 parameters and
+# AdamW state, bf16 activations, plain attention: the registry's config)
+# fed by the data-flow TokenPipeline; seq 512 keeps the plain attention's
+# float32 scores and probabilities ([8, 16, 512, 512], 134 MB a layer,
+# kept for the backward) well inside the card
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 12
+MEMO_STEPS = 20                 # steps on one repeated batch
+# card against CPU, float32 with TF32 off: loss, every gradient leaf (atol
+# + rtol, as tests/test_models.py holds remat against no remat) and the
+# parameters after one AdamW step
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, (1e-5, 1e-4), 1e-6
 SCAN_KERNEL = {"rwkv6": "rwkv6_scan", "hybrid": "linear_scan"}
 # rwkv6_scan against the sequential plain recurrence on the same inputs:
 # float32 outputs to tests/test_kernels.py's 3e-4 (summation order only);
@@ -1556,6 +1590,21 @@ def _entry(name, launches, err, ms, plain_ms, bytes_, opers, library_ms,
             "library_ms": library_ms, "shape": shape}
 
 
+def _union(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
 def _device_busy(prof) -> tuple:
     """(union of device kernel intervals in us, device kernels, {kernel
     name: summed us}) of a finished torch.profiler run."""
@@ -1566,18 +1615,7 @@ def _device_busy(prof) -> tuple:
         s, t_end = e.time_range.start, e.time_range.end
         spans.append((s, t_end))
         per_name[e.name] = per_name.get(e.name, 0.0) + (t_end - s)
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy, len(spans), per_name
+    return _union(spans), len(spans), per_name
 
 
 def phase_profile(res: dict, plans: dict) -> None:
@@ -3336,6 +3374,434 @@ def phase_serve_family(res: dict, dev, phase: str) -> dict:
     return {"flash_attention": serve["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def _train_card_vs_cpu(train: dict, dev) -> None:
+    """One train step of qwen3-0.6b REDUCED in float32 on the card and on
+    the CPU, same weights and batch, TF32 off: loss, every gradient leaf
+    and the parameters after the AdamW step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import make_model
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    cpu = make_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    card = make_model(cfg, dev).load_params(cpu.state_dict())
+    batch = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=128,
+                          device=dev)(0)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for name, m, b in (("cpu", cpu, {"tokens": batch["tokens"].cpu()}),
+                           ("card", card, batch)):
+            params = m.master_params()
+            loss, grads = loss_and_grads(m, params, b)
+            new, _, _ = adamw_update(AdamWConfig(), params, grads,
+                                     init_opt_state(params))
+            out[name] = (float(loss), grads, new)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["card"]
+    atol, rtol = TRAIN_GRAD_TOL
+    grad_excess = max(float(((gg[k].cpu() - gc[k]).abs()
+                             - (atol + rtol * gc[k].abs())).max())
+                      for k in gc)
+    param_err = max(float((pg[k].cpu() - pc[k]).abs().max()) for k in pc)
+    train["card_vs_cpu"] = {"loss_cpu": lc, "loss_card": lg,
+                            "loss_err": abs(lc - lg),
+                            "grad_excess": grad_excess,
+                            "param_err": param_err, "leaves": len(gc)}
+    say("train", f"card vs CPU ({cfg.name}, float32, TF32 off, batch "
+        f"{TRAIN_BATCH} x 128 from TokenPipeline): loss {lg!r} vs {lc!r} "
+        f"(|diff| {abs(lc - lg):.3g} <= {TRAIN_LOSS_TOL}); {len(gc)} "
+        f"gradient leaves, worst |diff| - ({atol} + {rtol}|cpu|) = "
+        f"{grad_excess:.3g} (<= 0); params after AdamW max |diff| "
+        f"{param_err:.3g} (<= {TRAIN_PARAM_TOL})")
+    if abs(lc - lg) > TRAIN_LOSS_TOL or grad_excess > 0 \
+            or param_err > TRAIN_PARAM_TOL:
+        raise AssertionError("train step on the card disagrees with the CPU")
+
+
+def _train_guard(dev) -> None:
+    """The three model-plane kernels raise under autograd on CUDA inputs
+    that take gradients, and launch nothing."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((1, 2, 16, 64), generator=g, device=dev)
+    w = torch.rand((1, 2, 8, 16), generator=g, device=dev)
+    a = torch.rand((2, 8, 4), generator=g, device=dev)
+    calls = {
+        "flash_attention": lambda: ops.flash_attention(
+            q.clone().requires_grad_(), q, q),
+        "rwkv6_scan": lambda: ops.rwkv6(w, w, w, w, w[0, :, 0].clone()
+                                        .requires_grad_()),
+        "linear_scan": lambda: ops.linear_scan(a, a.clone()
+                                               .requires_grad_()),
+    }
+    ops.reset_launches()
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            if name not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran under autograd")
+    torch.cuda.synchronize()
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"launches under the guard: {ops.LAUNCHES}")
+    say("train", "guard: flash_attention, rwkv6_scan and linear_scan raise "
+        "NotImplementedError under autograd on CUDA inputs that take "
+        "gradients, no launch")
+
+
+def _timed_supervisor(**kw):
+    """A `Supervisor` whose checkpoint saves are timed, into `.saves`."""
+    from repro_torch.train.fault import Supervisor
+
+    class Timed(Supervisor):
+        def _save(self, state, wait):
+            t = time.perf_counter()
+            super()._save(state, wait)
+            self.saves.append(time.perf_counter() - t)
+
+    sup = Timed(**kw)
+    sup.saves = []
+    return sup
+
+
+def _train_restart(train: dict, dev) -> None:
+    """qwen3-0.6b REDUCED on the card under the Supervisor: 8 steps
+    uninterrupted, and 8 steps with two failures of step 5 (checkpoints
+    every 2 steps, so each failure restores step 4 and replays it)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import make_model
+    from repro_torch.train.fault import Supervisor
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    model = make_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=128,
+                         seed=1, device=dev)
+    step_fn = make_train_step(model, TrainConfig(opt=AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=8)))
+    fails = {"n": 2}
+    logs = []
+
+    def flaky(params, opt, batch, step):
+        if step == 5 and fails["n"]:
+            fails["n"] -= 1
+            raise RuntimeError("injected step failure")
+        return step_fn(params, opt, batch, step)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    try:
+        finals = []
+        for name, fn in (("uninterrupted", step_fn), ("restarted", flaky)):
+            params = model.master_params()
+            state = {"params": params, "opt": init_opt_state(params),
+                     "step": 0}
+            state, _ = Supervisor(ckpt_dir=os.path.join(root, name),
+                                  ckpt_every=2).run(
+                state=state, train_step=fn, batch_fn=pipe, num_steps=8,
+                log_every=0, log=logs.append)
+            finals.append(state)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = (s["params"] for s in finals)
+    err = max(float((a[k] - b[k]).abs().max()) for k in a)
+    same = sum(torch.equal(a[k], b[k]) for k in a)
+    failed = sum("injected step failure" in x for x in logs)
+    det = torch.are_deterministic_algorithms_enabled()
+    train["restart"] = {"param_err": err, "bit_equal_leaves": same,
+                        "leaves": len(a), "failures": failed,
+                        "deterministic_algorithms": det}
+    say("train", f"restart ({cfg.name}, 8 steps, checkpoints every 2): "
+        f"{failed} injected failures of step 5, each restoring step 4; "
+        f"final parameters against the uninterrupted run max |diff| "
+        f"{err:.3g} (<= {TRAIN_PARAM_TOL}), {same}/{len(a)} leaves bit "
+        f"for bit; deterministic algorithms "
+        f"{'on' if det else 'off'} (the embedding backward accumulates by "
+        f"atomics when off)")
+    if failed != 2 or finals[1]["step"] != 8 or err > TRAIN_PARAM_TOL:
+        raise AssertionError("the restarted run does not reproduce the "
+                             "uninterrupted one")
+
+
+def _parts_busy(prof, parts) -> dict:
+    """{part: (device busy us, device kernels)} of a profiled step whose
+    parts ran inside `record_function(part)` ranges, each ended by a
+    synchronize: a kernel belongs to the range its start falls in.  The
+    ranges' own device-side annotations (CUDA events named as the part)
+    are no kernels and count for nothing."""
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.name in parts
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    spans = {p: [] for p in parts}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name in parts:
+            continue
+        for p, (lo, hi) in ranges.items():
+            if lo <= e.time_range.start <= hi:
+                spans[p].append((e.time_range.start, e.time_range.end))
+                break
+    return {p: (_union(sp), len(sp)) for p, sp in spans.items()}
+
+
+def _train_parts(model, pipe, params, opt, step: int, mark) -> None:
+    """One train step in its four parts — host (the TokenPipeline batch
+    and its copy), forward (the loss), backward (the gradients) and AdamW
+    — calling `mark(part)` before each and `mark(None)` after the last."""
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+
+    mark("host")
+    batch = pipe(step)
+    mark("forward")
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = model.loss(batch, leaves)
+    mark("backward")
+    gs = torch.autograd.grad(loss, list(leaves.values()))
+    mark("adamw")
+    adamw_update(AdamWConfig(), params, dict(zip(leaves, gs)), opt)
+    mark(None)
+
+
+def _profile_train_step(train: dict, model, pipe, params, opt, step_ms
+                        ) -> None:
+    """A train step's parts (`_train_parts`): unprofiled, the card's span
+    of each part by CUDA events recorded between them (device time
+    including any wait on the host); then under torch.profiler, each part
+    in a `record_function` range ended by a synchronize, its device busy
+    time, device kernels and wall, the idle share against the timed run's
+    median step, and the step's top device kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    parts = ("host", "forward", "backward", "adamw")
+    events = []
+
+    def event(part):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _train_parts(model, pipe, params, opt, TRAIN_STEPS, event)
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t) * 1e3
+    span = {p: events[i].elapsed_time(events[i + 1])
+            for i, p in enumerate(parts)}
+
+    wall, running = {}, []
+
+    def ranged(part):
+        torch.cuda.synchronize()
+        if running:
+            name, rf, t0 = running.pop()
+            rf.__exit__(None, None, None)
+            wall[name] = time.perf_counter() - t0
+        if part is not None:
+            rf = record_function(part)
+            rf.__enter__()
+            running.append((part, rf, time.perf_counter()))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _train_parts(model, pipe, params, opt, TRAIN_STEPS, ranged)
+    busy = _parts_busy(prof, parts)
+    total = sum(b for b, _ in busy.values())
+    say("train", f"unprofiled step {step_wall:.1f} ms; the card's span by "
+        f"part (CUDA events, ms): " + ", ".join(
+            f"{p} {span[p]:.1f}" for p in parts))
+    if total <= 0:
+        say("train", "the profiler recorded no device kernels: the step's "
+            "device busy time and idle share not measured")
+        return
+    _, _, per_name = _device_busy(prof)
+    top = sorted(((k, v) for k, v in per_name.items() if k not in parts),
+                 key=lambda kv: -kv[1])[:8]
+    train["profile"] = {
+        "parts": {p: {"device_busy_us": busy[p][0],
+                      "device_kernels": busy[p][1],
+                      "wall_ms": wall[p] * 1e3, "event_span_ms": span[p]}
+                  for p in parts},
+        "device_busy_us": total, "unprofiled_step_ms": step_wall,
+        "idle_share": max(0.0, 1 - total / (step_ms * 1e3)),
+        "profiled_idle_share": 1 - total / (sum(wall.values()) * 1e6),
+        "top": top}
+    say("train", f"profiled step: device busy {total / 1e3:.1f} ms in "
+        f"{sum(k for _, k in busy.values())} device kernels against the "
+        f"timed run's median step {step_ms:.1f} ms, idle share "
+        f"{train['profile']['idle_share']:.3f} (against the profiled "
+        f"parts' synchronized wall {sum(wall.values()) * 1e3:.1f} ms: "
+        f"{train['profile']['profiled_idle_share']:.3f}); by part (device "
+        f"busy ms / device kernels / synchronized wall ms): " + ", ".join(
+            f"{p} {busy[p][0] / 1e3:.1f} / {busy[p][1]} / "
+            f"{wall[p] * 1e3:.1f}" for p in parts))
+    for k, v in top:
+        say("train", f"  {v / 1e3:9.2f} ms  {k[:90]}")
+
+
+def _train_full(train: dict, dev) -> None:
+    """qwen3-0.6b FULL: TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ from
+    TokenPipeline under the Supervisor (a checkpoint only at the end), the
+    profiled step, then MEMO_STEPS steps on one repeated batch."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import make_model
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = make_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    params = model.master_params()
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = model.param_count()
+    t_pipe = time.perf_counter()
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         device=dev)
+    cpu_pipe = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, device="cpu",
+                             optimized=pipe.optimized)
+    t_pipe = time.perf_counter() - t_pipe
+    say("train", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.kv_heads} x "
+        f"{cfg.head_dim}, vocab {cfg.vocab}, {n_params:,} "
+        f"{str(cfg.p_dtype)[6:]} parameters and AdamW moments, "
+        f"{str(cfg.act_dtype)[6:]} activations, attn_impl={cfg.attn_impl}, "
+        f"remat={cfg.remat}; init {time.perf_counter() - t:.1f}s, peak "
+        f"{init_peak:.2f} GB after init; TokenPipeline plan "
+        f"{pipe.optimized.best.order()} ({t_pipe:.2f}s to build two)")
+
+    batches = {}
+
+    def batch_fn(step):
+        b = pipe(step)
+        batches[step] = b["tokens"]
+        return b
+
+    metrics = []
+    step_fn = make_train_step(model, TrainConfig())
+
+    def recorded(p, o, b, step):
+        out = step_fn(p, o, b, step)
+        metrics.append((step, out[2]))
+        return out
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    say("train", f"checkpoint directory {root}: "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    try:
+        # a deadline of 0 s makes the watchdog note every step's time: the
+        # batch, the step and the wait on its loss
+        sup = _timed_supervisor(ckpt_dir=root, ckpt_every=TRAIN_STEPS + 1,
+                                step_deadline_s=0.0)
+        state = {"params": params, "opt": opt, "step": 0}
+        del params, opt
+        state, wd = sup.run(state=state, train_step=recorded,
+                            batch_fn=batch_fn, num_steps=TRAIN_STEPS,
+                            log_every=0)
+        step_dir = os.path.join(root, f"step_{TRAIN_STEPS}")
+        ckpt_gb = sum(os.path.getsize(os.path.join(step_dir, f))
+                      for f in os.listdir(step_dir)) / 1e9
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for _, m in metrics]
+    gnorms = [float(m["grad_norm"]) for _, m in metrics]
+    times = [dt for _, dt in wd.events]
+    step_ms = float(np.median(times[2:])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    same = all(torch.equal(batches[s].cpu(), cpu_pipe(s)["tokens"])
+               for s in range(TRAIN_STEPS))
+    train["full"] = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": state["step"],
+        "losses": losses, "grad_norms": gnorms, "step_s": times,
+        "median_step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "init_peak_gb": init_peak, "peak_gb": train_peak,
+        "ckpt_s": sup.saves, "ckpt_gb": ckpt_gb,
+        "batches_equal_cpu": same}
+    say("train", f"{state['step']} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"under the Supervisor: losses {', '.join(f'{x:.4f}' for x in losses)}"
+        f"; grad norms {', '.join(f'{x:.3f}' for x in gnorms)}")
+    say("train", f"median step over the last {len(times) - 2} "
+        f"{step_ms:.1f} ms (steps {', '.join(f'{x * 1e3:.1f}' for x in times)}"
+        f" ms), {tokens / step_ms * 1e3:,.0f} tokens/s, peak "
+        f"{train_peak:.2f} GB; final checkpoint {ckpt_gb:.2f} GB in "
+        f"{sum(sup.saves):.2f}s; the card's batches equal the CPU's for "
+        f"the same (seed, step): {same}")
+    first = losses[0]
+    if not (all(map(math.isfinite, losses + gnorms)) and same
+            and abs(first - math.log(cfg.vocab)) < 1.0
+            and state["step"] == TRAIN_STEPS and len(sup.saves) == 1):
+        raise AssertionError(f"train run: first loss {first} against "
+                             f"ln(vocab) {math.log(cfg.vocab):.3f}, "
+                             f"batches equal {same}, saves {sup.saves}")
+
+    _profile_train_step(train, model, pipe, state["params"], state["opt"],
+                        step_ms)
+
+    # memorization: one batch again and again at a constant lr
+    memo_fn = make_train_step(model, TrainConfig(opt=AdamWConfig(
+        lr=1e-3, warmup_steps=2, schedule="constant")))
+    params = state["params"]
+    opt = init_opt_state(params)
+    del state
+    batch = pipe(1000)
+    memo = []
+    for s in range(MEMO_STEPS):
+        params, opt, m = memo_fn(params, opt, batch, s)
+        memo.append(float(m["loss"]))
+    train["memorize"] = memo
+    say("train", f"memorization, {MEMO_STEPS} steps on one batch at lr 1e-3 "
+        f"(constant, 2 warm-up steps): losses "
+        f"{', '.join(f'{x:.3f}' for x in memo)}")
+    if not (all(map(math.isfinite, memo)) and memo[-1] <= memo[0] - 1.0):
+        raise AssertionError(f"memorization: last loss {memo[-1]} not 1.0 "
+                             f"below the first {memo[0]}")
+
+
+def phase_train(res: dict, dev) -> None:
+    """Training, the port's train path: card against CPU on the REDUCED
+    config, the kernel guard, a restart with injected failures, then
+    qwen3-0.6b at full width and depth fed by TokenPipeline."""
+    train = res["train"] = {}
+    t = time.perf_counter()
+    _train_card_vs_cpu(train, dev)
+    _train_guard(dev)
+    _train_restart(train, dev)
+    torch.cuda.empty_cache()
+    _train_full(train, dev)
+    train["seconds"] = time.perf_counter() - t
+    say("train", f"ok {train['seconds']:.1f}s")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3346,9 +3812,9 @@ def main(argv) -> int:
 
     # `--only probe,flash,...`: the build and the named kernel checks
     # alone, for a short run while a kernel changes; `dataflow` adds the
-    # flows, timing and profile phases, `adaptive`, `serving`, `mesh` and
-    # the FAMILY_PHASES names (serve_moe, serve_mixtral, serve_vlm,
-    # serve_encdec) those phases; no result line
+    # flows, timing and profile phases, `adaptive`, `serving`, `mesh`,
+    # `train` and the FAMILY_PHASES names (serve_moe, serve_mixtral,
+    # serve_vlm, serve_encdec) those phases; no result line
     only = None
     if len(argv) == 2 and argv[0] == "--only":
         only = set(argv[1].split(","))
@@ -3390,6 +3856,10 @@ def main(argv) -> int:
             if only is not None and phase in only:
                 torch.cuda.empty_cache()
                 phase_serve_family(res, dev, phase)
+        if only is not None and "train" in only:
+            phase = "train"
+            torch.cuda.empty_cache()
+            phase_train(res, dev)
         if only is not None:
             say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
             os.makedirs(OUT_DIR, exist_ok=True)
@@ -3429,6 +3899,9 @@ def main(argv) -> int:
             torch.cuda.empty_cache()
             flash["phase_launches"][phase] = phase_serve_family(
                 res, dev, phase)["flash_attention"]
+        torch.cuda.empty_cache()
+        phase = "train"
+        phase_train(res, dev)
     except Exception:
         say(phase, "FAILED\n" + traceback.format_exc())
         return 1

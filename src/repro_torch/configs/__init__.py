@@ -1,8 +1,9 @@
 """Configurations: the paper's evaluation data flows (`flows.py`) and the
 model plane's architecture registry (port of `repro.configs`).
 
-The ten architecture files are pure data, copied as they are.  The
-reference's `input_specs` builds dry-run stand-ins for XLA and stays behind.
+The ten architecture files and the assigned input shapes (`shapes.py`) are
+pure data, copied as they are.  The reference's `input_specs` builds dry-run
+stand-ins for XLA and stays behind.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from ..models.config import ModelConfig
 from . import (granite_20b, llama3_2_1b, mixtral_8x22b, phi_3_vision_4_2b,
                qwen2_5_14b, qwen2_moe_a2_7b, qwen3_0_6b, recurrentgemma_2b,
                rwkv6_3b, whisper_tiny)
+from .shapes import SHAPES, ShapeSpec, long_ok, shapes_for  # noqa: F401
 
 _MODULES = {
     "qwen2.5-14b": qwen2_5_14b,

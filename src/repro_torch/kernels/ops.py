@@ -9,7 +9,11 @@ runs the kernel's plain torch version (`kernels.ref`); given CUDA tensors it
 launches the hand-written CUDA kernel (`repro_torch/csrc/`, built on first use
 by `kernels.build`) on the current stream, or raises — there is no quiet
 fallback.  Every CUDA launch of a kernel adds one to `LAUNCHES[name]`, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  The
+model-plane kernels (flash_attention, rwkv6_scan, linear_scan) have no
+backward: under autograd, on CUDA inputs that take gradients, they raise
+`NotImplementedError` (on CPU tensors the plain versions run, and
+differentiate).
 
 Unlike the reference wrappers, data-plane values keep their native dtype:
 no float32 cast (`repro/kernels/ops.py:51,78`), so integer sums are exact.
@@ -346,6 +350,17 @@ def probe_positions(keys_sorted: torch.Tensor, queries: torch.Tensor,
     return out
 
 
+def _no_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """The model-plane kernels define no backward, as the reference's
+    Pallas kernels define none: a launch on inputs that take gradients
+    would give an output without a `grad_fn` and cut the gradients of the
+    weights behind it without a word, so it raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward; train on its plain "
+            f"path (attn_impl='xla', use_kernel=False)")
+
+
 # ---------------------------------------------------------------------------
 # Flash attention
 # ---------------------------------------------------------------------------
@@ -376,6 +391,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_cuda(q, k, v):
         return ref.attention(q, k, v, causal=causal, window=window,
                              scale=scale)
+    _no_autograd("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention takes q [B,Hq,T,D] and k, v "
                          f"[B,Hkv,S,D]; got {tuple(q.shape)}, "
@@ -584,6 +600,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_cuda(*tensors):
         return ref.rwkv6(r, k, v, w, u, state=state,
                          return_state=return_state)
+    _no_autograd("rwkv6_scan", *tensors)
     if r.ndim != 4 or k.shape != r.shape or w.shape != r.shape \
             or v.ndim != 4 or v.shape[:3] != r.shape[:3]:
         raise ValueError(f"rwkv6 takes r, k, w [B,H,T,Dk] and v [B,H,T,Dv]; "
@@ -639,6 +656,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
     tensors = (a, b) + (() if h0 is None else (h0,))
     if not _on_cuda(*tensors):
         return ref.linear_scan(a, b, h0=h0)
+    _no_autograd("linear_scan", *tensors)
     if a.ndim < 2 or b.shape != a.shape:
         raise ValueError(f"linear_scan takes a, b [..., T, D] of one shape, "
                          f"got {tuple(a.shape)}, {tuple(b.shape)}")

@@ -1,0 +1,83 @@
+"""Training launcher: any --arch on one device, fed by the optimized
+data-flow pipeline, supervised with checkpoint/restart.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --reduced --steps 100 --batch 8 --seq 128 [--device cpu]
+
+Port of `repro.launch.train`, with its flags and `--device`: it runs on the
+card unless told otherwise.  It has no mesh (the reference's production
+shardings wait for the port of `parallel.sharding`) and no donation: the
+step returns new tensors and the old ones are freed when dropped.  Weights
+are drawn from a generator seeded with 0, as the reference's launcher
+draws them from `jax.random.key(0)` (other numbers, the same
+distributions).  The config is the registry's, so attention is plain
+(`attn_impl="xla"`) and the recurrences take their plain paths: no CUDA
+kernel has a backward.  The checkpoint directory defaults to
+`repro_train_ckpt` under the temporary directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+import torch
+
+from ..configs import ARCH_IDS, get_config
+from ..core.record import resolve_device
+from ..data.pipeline import TokenPipeline
+from ..models import make_model
+from ..train.fault import Supervisor
+from ..train.optimizer import AdamWConfig, init_opt_state
+from ..train.train_step import TrainConfig, make_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-scale config (CPU)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_train_ckpt"))
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    device = resolve_device(args.device)
+    model = make_model(cfg, device).init(
+        torch.Generator(device=device).manual_seed(0))
+    print(f"[train] {cfg.name} on {device}: "
+          f"{model.param_count() / 1e6:.1f}M params")
+    params = model.master_params()
+    opt = init_opt_state(params)
+
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=args.batch, seq=args.seq,
+                         device=device)
+    print("[train] pipeline plan:", pipe.optimized.best.order())
+
+    tcfg = TrainConfig(
+        opt=AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 2),
+                        total_steps=args.steps),
+        microbatches=args.microbatches,
+        compress_grads=args.compress_grads)
+    step_fn = make_train_step(model, tcfg)
+
+    sup = Supervisor(ckpt_dir=args.ckpt_dir,
+                     ckpt_every=max(args.steps // 4, 10))
+    state = {"params": params, "opt": opt, "step": 0}
+    state, wd = sup.run(state=state, train_step=step_fn, batch_fn=pipe,
+                        num_steps=args.steps, log_every=10)
+    print(f"[train] finished at step {state['step']}, "
+          f"stragglers={len(wd.events)}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

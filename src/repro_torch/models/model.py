@@ -12,6 +12,14 @@ reference's pytree).  The weights the passes read are cast once to the
 activation dtype at the first call after `init` / `load_params`
 (`transformer.cast_params`).
 
+Training is functional, as the reference's: `loss(batch, params)` reads a
+flat `{dotted path: tensor}` dict of master leaves (the parameter dtype,
+float32 in every registered config) that the caller made take gradients
+(`master_params`, `train.train_step`), casts them to the activation dtype
+inside the graph on every call and never touches the serving cache.
+`prefill` and `decode_step` run under `inference_mode` on the tree cast
+once.
+
 `use_kernel` is the reference transformer's switch, carried to `forward`
 and `prefill`: it sends the rwkv6 and RG-LRU recurrences to their kernels.
 It defaults to False, as the reference's facade and launcher leave it.
@@ -41,12 +49,16 @@ def _register(module: nn.Module, tree: Mapping) -> None:
             module.register_parameter(k, nn.Parameter(v, requires_grad=False))
 
 
-def _tree(module: nn.Module):
-    """The nested dicts and lists of parameters `_register` made."""
+def _tree(module: nn.Module, flat: Mapping | None = None, prefix: str = ""):
+    """The nested dicts and lists of parameters `_register` made; with
+    `flat`, the same structure holding `flat[dotted path]` in place of each
+    parameter (a KeyError names a path `flat` lacks)."""
     if isinstance(module, nn.ModuleList):
-        return [_tree(m) for m in module]
-    out = {k: _tree(m) for k, m in module._modules.items()}
-    out.update(module._parameters)
+        return [_tree(m, flat, f"{prefix}{i}.") for i, m in enumerate(module)]
+    out = {k: _tree(m, flat, f"{prefix}{k}.")
+           for k, m in module._modules.items()}
+    out.update(module._parameters if flat is None else
+               {k: flat[prefix + k] for k in module._parameters})
     return out
 
 
@@ -100,6 +112,12 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def master_params(self) -> dict[str, torch.Tensor]:
+        """`{dotted path: tensor}` of the parameters as training reads
+        them: detached, in the parameter dtype, sharing the module's
+        storage (the train step never writes into its inputs)."""
+        return {k: v.detach() for k, v in self.state_dict().items()}
+
     # -- forward ------------------------------------------------------------
     @torch.inference_mode()
     def logits(self, batch: dict):
@@ -109,6 +127,33 @@ class Model(nn.Module):
                          img_embeds=batch.get("img_embeds"),
                          audio_frames=batch.get("audio_frames"),
                          use_kernel=self.use_kernel)
+
+    # -- training -----------------------------------------------------------
+    def loss(self, batch: dict, params: Mapping | None = None
+             ) -> torch.Tensor:
+        """Next-token cross entropy (+ MoE aux), float32 over the padded
+        vocab: `logsumexp` minus the gold logit on `tokens[:, 1:]`, meaned
+        over the `loss_mask` where the batch has one.  `params` is a flat
+        `{dotted path: tensor}` dict (the module's own parameters when
+        None), cast to the activation dtype inside the graph."""
+        logits, aux = T.forward(T.cast_params(_tree(self, params), self.cfg),
+                                self.cfg,
+                                batch["tokens"],
+                                img_embeds=batch.get("img_embeds"),
+                                audio_frames=batch.get("audio_frames"),
+                                use_kernel=self.use_kernel)
+        tgt = batch["tokens"][:, 1:].long()
+        lg = logits[:, :-1]
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        nll = logz - gold
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            m = mask[:, 1:].to(torch.float32)
+            nll = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+        else:
+            nll = nll.mean()
+        return nll + aux
 
     # -- serving ------------------------------------------------------------
     def init_decode_state(self, batch: int, seq: int):

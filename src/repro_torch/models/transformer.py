@@ -16,12 +16,18 @@ projects `img_embeds` over the first tokens of the sequence.
 `use_kernel` is the reference's switch: it sends the rwkv6 and RG-LRU
 recurrences of `forward` and `prefill` to their kernels (`kernels.ops`);
 the decode step keeps the plain one-token recurrence, as the reference
-does.
+does.  While autograd records, `forward` runs each decoder layer under
+`cfg.remat` (`_remat`: "full" or "dots", as the reference's
+`jax.checkpoint` policies).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from . import moe as MOE
@@ -317,6 +323,36 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation (training)
+# ---------------------------------------------------------------------------
+# the matmuls without batch dims: the projections `x @ W` (a 3-d `x` folds
+# into one 2-d product); attention's and the experts' products are `bmm`
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """A decoder layer `fn` under `cfg.remat` while autograd records, as
+    the reference's `_remat`: "full" keeps each layer's inputs and
+    recomputes the layer in the backward; "dots" also keeps the outputs of
+    the matmuls without batch dims (`checkpoint_dots_with_no_batch_dims`)
+    and recomputes the rest.  Any other value, or no autograd, runs `fn`
+    as it is.  The forward draws no random numbers, so no RNG state is
+    kept."""
+    if not torch.is_grad_enabled() or cfg.remat not in ("full", "dots"):
+        return fn
+    ctx = dict(context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)) \
+        if cfg.remat == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **ctx)
+
+
+# ---------------------------------------------------------------------------
 # Forward passes (params from `cast_params`)
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
@@ -330,18 +366,20 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
         enc = encode(params, cfg, _audio(cfg, audio_frames))
         x = x + params["dec_pos"][positions].to(x.dtype)[None]
         for lp in params["dec_layers"]:
-            x, _ = _dec_layer(lp, cfg, x, positions, enc)
+            x, _ = _remat(_dec_layer, cfg)(lp, cfg, x, positions, enc)
         return _logits(params, cfg, x), aux
     for kind, lp in zip(layer_kinds(cfg), params["layers"]):
         if kind in ("dense", "moe"):
-            x, a = dense_layer(lp, cfg, x, positions, window=cfg.window)
+            x, a = _remat(dense_layer, cfg)(lp, cfg, x, positions,
+                                            window=cfg.window)
             if a is not None:
                 aux = aux + a
         elif kind == "rwkv6":
-            x, _ = RW.rwkv_layer(lp, cfg, x, use_kernel=use_kernel)
+            x, _ = _remat(RW.rwkv_layer, cfg)(lp, cfg, x,
+                                              use_kernel=use_kernel)
         else:
-            x, _ = _hybrid_one(lp, cfg, kind, x, positions,
-                               use_kernel=use_kernel)
+            x, _ = _remat(_hybrid_one, cfg)(lp, cfg, kind, x, positions,
+                                            use_kernel=use_kernel)
     return _logits(params, cfg, x), aux
 
 

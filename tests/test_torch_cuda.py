@@ -861,3 +861,91 @@ def test_cuda_recurrent_prefill_kernel_matches_plain(cuda, arch):
     kern.use_kernel = True
     Engine(kern, batch_slots=2, max_seq=32).generate(reqs)
     assert all(len(r.out_tokens) == 4 for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# Training: the kernels have no backward, the plain path trains on the card
+# ---------------------------------------------------------------------------
+def _guarded_call(name, cuda):
+    """A call of kernel `name` on CUDA inputs that take gradients."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if name == "flash_attention":
+        q = torch.randn((1, 2, 16, 64), generator=g, device=cuda)
+        return lambda: tops.flash_attention(q.requires_grad_(), q, q)
+    if name == "rwkv6_scan":
+        r = torch.randn((1, 2, 8, 16), generator=g, device=cuda)
+        w = torch.rand((1, 2, 8, 16), generator=g, device=cuda)
+        u = torch.randn((2, 16), generator=g, device=cuda).requires_grad_()
+        return lambda: tops.rwkv6(r, r, r, w, u)
+    a = torch.rand((2, 8, 4), generator=g, device=cuda)
+    b = torch.randn((2, 8, 4), generator=g, device=cuda).requires_grad_()
+    return lambda: tops.linear_scan(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "rwkv6_scan",
+                                  "linear_scan"])
+def test_cuda_kernels_raise_under_autograd(cuda, name):
+    call = _guarded_call(name, cuda)
+    tops.reset_launches()
+    with pytest.raises(NotImplementedError, match=name):
+        call()
+    assert tops.LAUNCHES[name] == 0
+    with torch.no_grad():  # no graph: the kernel runs
+        call()
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, over, use_kernel, name", [
+    ("qwen3-0.6b", dict(attn_impl="flash"), False, "flash_attention"),
+    ("rwkv6-3b", {}, True, "rwkv6_scan"),
+    ("recurrentgemma-2b", {}, True, "linear_scan")])
+def test_cuda_train_step_on_a_kernel_path_raises(cuda, arch, over,
+                                                 use_kernel, name):
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = get_config(arch, reduced=True, **over)
+    model = make_model(cfg, cuda, use_kernel=use_kernel).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    params = model.master_params()
+    step = make_train_step(model, TrainConfig())
+    toks = torch.randint(0, cfg.vocab, (2, 32), device=cuda,
+                         dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match=name):
+        step(params, init_opt_state(params), {"tokens": toks}, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = make_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        card = make_model(cfg, cuda).load_params(cpu.state_dict())
+        pipe = TokenPipeline(vocab=cfg.vocab, batch=4, seq=64, device=cuda)
+        batch = pipe(3)
+        assert torch.equal(batch["tokens"].cpu(), torch.from_numpy(
+            pipe.host_tokens(3)))
+        out = {}
+        for name, m, b in (("cpu", cpu, {"tokens": batch["tokens"].cpu()}),
+                           ("card", card, batch)):
+            params = m.master_params()
+            out[name] = make_train_step(m, TrainConfig())(
+                params, init_opt_state(params), b, 0)
+        (pc, oc, mc), (pg, og, mg) = out["cpu"], out["card"]
+        assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-5
+        for k in pc:
+            torch.testing.assert_close(og["mu"][k].cpu(), oc["mu"][k],
+                                       atol=1e-6, rtol=1e-4)
+            torch.testing.assert_close(pg[k].cpu(), pc[k], atol=1e-6,
+                                       rtol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
