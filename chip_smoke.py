@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only mesh          # build + the sharded executor
     python3 chip_smoke.py --only flash,serve_moe,serve_mixtral,serve_vlm,serve_encdec
     python3 chip_smoke.py --only train         # build + the train phase
+    python3 chip_smoke.py --only train_mesh    # build + the placed train step
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
@@ -26,8 +27,9 @@ qwen2-moe-a2.7b (full depth), mixtral-8x22b (4 of 56 layers),
 phi-3-vision-4.2b and whisper-tiny; and training — launch.train's path,
 Supervisor -> make_train_step (Model.loss, autograd, AdamW) fed by the
 data-flow TokenPipeline — for qwen3-0.6b at full width and depth, on
-which no kernel runs (the kernels raise under autograd).  Phases, one or
-more lines each:
+which no kernel runs (the kernels raise under autograd), plain and placed
+on the card's one-rank NCCL mesh (`launch.mesh`, `parallel.sharding`).
+Phases, one or more lines each:
 
   device   the card's name and power limit (nvidia-smi), first line
   build    the seven kernels built from the checkout with nvcc (one nvcc
@@ -176,6 +178,18 @@ more lines each:
            backward, AdamW) by CUDA events and under torch.profiler
            (device busy, kernels, idle share, top kernels); 20 steps on
            one batch at lr 1e-3 that must cut the loss by 1.0
+  train_mesh
+           launch.train's placed path: `launch.train.setup` (qwen3-0.6b
+           FULL, batch 8 x 512 from TokenPipeline) on make_host_mesh's
+           one-rank NCCL mesh, parameters placed by validated_pspecs,
+           batches by batch_pspec, against the plain step on the same
+           model's parameters and batches: TRAIN_MESH_STEPS steps of each
+           under the Supervisor, the losses (within 1e-5) and the final
+           parameters (within 1e-6), saying whether they are bit for bit;
+           the placed checkpoint restored by elastic_restore(..., mesh,
+           validated_pspecs), bit for bit with every placement kept; both
+           steps timed in turns on the final states, profiled (device
+           kernels, busy, idle share against the median step)
 
 The line before the last is a JSON object of the kernels' numbers, the last
 `{"ok": true, "device": {...}}`.  Any failed phase, a missing CUDA device or
@@ -296,6 +310,9 @@ IMG_SEED, AUDIO_SEED = 1, 2   # the seeded image prefix and audio frames
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 12
 MEMO_STEPS = 20                 # steps on one repeated batch
+# launch.train's placed path against the plain step: supervised steps of
+# each, then warm steps of each taken in turns
+TRAIN_MESH_STEPS, TRAIN_MESH_ROUNDS = 4, 5
 # card against CPU, float32 with TF32 off: loss, every gradient leaf (atol
 # + rtol, as tests/test_models.py holds remat against no remat) and the
 # parameters after one AdamW step
@@ -3802,6 +3819,175 @@ def phase_train(res: dict, dev) -> None:
     say("train", f"ok {train['seconds']:.1f}s")
 
 
+def _leaves_agree(a: dict, b: dict) -> tuple:
+    """(max |a - b| over the leaves of two flat dicts, DTensors taken
+    whole; the leaves equal bit for bit)."""
+    from repro_torch.parallel.sharding import full_tensor
+
+    err, same = 0.0, 0
+    for k in a:
+        x, y = full_tensor(a[k]), full_tensor(b[k])
+        err = max(err, float((x.float() - y.float()).abs().max()))
+        same += torch.equal(x, y)
+    return err, same
+
+
+def phase_train_mesh(res: dict, dev) -> None:
+    """launch.train's placed path against the plain step, qwen3-0.6b FULL
+    at TRAIN_BATCH x TRAIN_SEQ from TokenPipeline: `launch.train.setup`
+    (the card's one-rank NCCL mesh from `make_host_mesh`, the parameters
+    placed by `validated_pspecs`, batches by `batch_pspec`) and the plain
+    step on the same model's parameters and the same batches, each for
+    TRAIN_MESH_STEPS steps under the Supervisor; the placed checkpoint
+    restored by `elastic_restore(..., mesh, validated_pspecs)`; both steps
+    timed in turns and profiled."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as ttrain
+    from repro_torch.parallel.sharding import mesh_sizes, validated_pspecs
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.fault import elastic_restore
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    tm = res["train_mesh"] = {}
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    try:
+        run = ttrain.setup(ttrain.parse_args([
+            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_MESH_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-dir", os.path.join(root, "placed")]))
+        leaf = next(iter(run.state["params"].values()))
+        tm["mesh"] = {"sizes": mesh_sizes(run.mesh),
+                      "backend": str(dist.get_backend()),
+                      "world_size": dist.get_world_size(),
+                      "leaf_type": type(leaf).__name__}
+        say("train_mesh", f"{run.model.cfg.name} on mesh {tm['mesh']}; "
+            f"{len(run.state['params'])} parameter leaves placed by "
+            f"validated_pspecs, e.g. embed.table {tuple(leaf.placements)}")
+        if tm["mesh"]["leaf_type"] != "DTensor" \
+                or "nccl" not in tm["mesh"]["backend"]:
+            raise AssertionError(f"not placed on an NCCL mesh: {tm['mesh']}")
+        plain = run.model.master_params()
+        paths = {"plain": (make_train_step(run.model, run.tcfg), run.pipe,
+                           {"params": plain, "opt": init_opt_state(plain),
+                            "step": 0}),
+                 "placed": (run.step_fn, run.batch_fn, run.state)}
+        del plain, leaf
+        run.state = None
+        finals = {}
+        for name in ("plain", "placed"):
+            fn, batch_fn, state = paths.pop(name)
+            losses = []
+
+            def recorded(p, o, b, step, fn=fn, losses=losses):
+                out = fn(p, o, b, step)
+                losses.append(float(out[2]["loss"]))
+                return out
+
+            sup = _timed_supervisor(
+                ckpt_dir=os.path.join(root, name),
+                ckpt_every=TRAIN_MESH_STEPS + 1, step_deadline_s=0.0)
+            finals[name], wd = sup.run(
+                state=state, train_step=recorded, batch_fn=batch_fn,
+                num_steps=TRAIN_MESH_STEPS, log_every=0)
+            tm[name] = {"losses": losses, "ckpt_s": sup.saves,
+                        "step_s": [dt for _, dt in wd.events]}
+            del state
+        shutil.rmtree(os.path.join(root, "plain"), ignore_errors=True)
+        lp, lq = tm["plain"]["losses"], tm["placed"]["losses"]
+        err, same = _leaves_agree(finals["plain"]["params"],
+                                  finals["placed"]["params"])
+        n = len(finals["plain"]["params"])
+        loss_err = max(abs(a - b) for a, b in zip(lp, lq))
+        tm["agreement"] = {"param_err": err, "bit_equal_leaves": same,
+                           "leaves": n, "loss_err": loss_err,
+                           "bit_for_bit": same == n and lp == lq}
+        say("train_mesh", f"{TRAIN_MESH_STEPS} supervised steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: plain losses "
+            f"{', '.join(repr(x) for x in lp)}; placed losses "
+            f"{', '.join(repr(x) for x in lq)}; parameters after the last "
+            f"step max |diff| {err:.3g} (<= {TRAIN_PARAM_TOL}), {same}/{n} "
+            f"leaves bit for bit: "
+            f"{'bit for bit' if tm['agreement']['bit_for_bit'] else 'NOT bit for bit'}")
+        if not (all(map(math.isfinite, lp + lq)) and len(lq) == len(lp)
+                == TRAIN_MESH_STEPS and loss_err <= TRAIN_LOSS_TOL
+                and err <= TRAIN_PARAM_TOL):
+            raise AssertionError("the placed step disagrees with the plain "
+                                 "step")
+
+        # the placed checkpoint onto the mesh again
+        placed = finals["placed"]
+        like = {"params": placed["params"], "opt": placed["opt"]}
+        t = time.perf_counter()
+        tree, step = elastic_restore(os.path.join(root, "placed"), like,
+                                     run.mesh, validated_pspecs)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        saved, got = dict(flatten(like)), dict(flatten(tree))
+        # every DTensor leaf comes back laid out as it was saved (the
+        # plain step count comes back replicated on the mesh)
+        placed_same = all(
+            getattr(got[k], "placements", None) == v.placements
+            for k, v in saved.items() if hasattr(v, "placements"))
+        rerr, rsame = _leaves_agree(saved, got)
+        tm["restore"] = {"s": restore_s, "save_s": tm["placed"]["ckpt_s"],
+                         "step": step, "bit_equal_leaves": rsame,
+                         "leaves": len(saved), "placements_kept": placed_same}
+        say("train_mesh", f"checkpoint of the placed state saved in "
+            f"{sum(tm['placed']['ckpt_s']):.2f}s, restored by "
+            f"elastic_restore(..., mesh, validated_pspecs) in "
+            f"{restore_s:.2f}s: step {step}, {rsame}/{len(saved)} leaves "
+            f"bit for bit, placements kept: {placed_same}")
+        if not (step == TRAIN_MESH_STEPS and rsame == len(saved)
+                and placed_same):
+            raise AssertionError("the restored checkpoint is not the saved "
+                                 "state")
+        del tree, got, saved, like
+
+        # both steps timed in turns on the final states, then profiled
+        batch = run.pipe(TRAIN_MESH_STEPS)
+        pbatch = run.batch_fn(TRAIN_MESH_STEPS)
+        pl, pq = finals["plain"], finals["placed"]
+        plain_fn = make_train_step(run.model, run.tcfg)
+        steps = {
+            "plain": lambda: plain_fn(pl["params"], pl["opt"], batch,
+                                      TRAIN_MESH_STEPS),
+            "placed": lambda: run.step_fn(pq["params"], pq["opt"], pbatch,
+                                          TRAIN_MESH_STEPS)}
+        turns = _in_turns(steps, TRAIN_MESH_ROUNDS)
+        tm["step_ms"] = turns
+        for name, fn in steps.items():
+            prof = _profiled_step(fn, reps=2)
+            prof["idle_share"] = max(
+                0.0, 1 - prof["device_busy_us"] / (turns[name][1] * 1e3))
+            tm[name]["profile"] = prof
+        a, b = tm["plain"]["profile"], tm["placed"]["profile"]
+        say("train_mesh", f"{res['nvidia_smi']}: step ms in turns "
+            f"({TRAIN_MESH_ROUNDS} rounds, q1 / median / q3) plain "
+            f"{' / '.join(f'{x:.1f}' for x in turns['plain'])}, placed "
+            f"{' / '.join(f'{x:.1f}' for x in turns['placed'])} "
+            f"({turns['placed'][1] / turns['plain'][1]:.2f}x); profiled "
+            f"step: plain {a['device_kernels']} device kernels, busy "
+            f"{a['device_busy_us'] / 1e3:.1f} ms, idle share "
+            f"{a['idle_share']:.3f}; placed {b['device_kernels']} device "
+            f"kernels, busy {b['device_busy_us'] / 1e3:.1f} ms, idle share "
+            f"{b['idle_share']:.3f}")
+        for name in steps:
+            for k, v in tm[name]["profile"]["top"]:
+                say("train_mesh", f"  {name} {v / 1e3:9.2f} ms  {k}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    tm["seconds"] = time.perf_counter() - t0
+    say("train_mesh", f"ok {tm['seconds']:.1f}s")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3813,8 +3999,8 @@ def main(argv) -> int:
     # `--only probe,flash,...`: the build and the named kernel checks
     # alone, for a short run while a kernel changes; `dataflow` adds the
     # flows, timing and profile phases, `adaptive`, `serving`, `mesh`,
-    # `train` and the FAMILY_PHASES names (serve_moe, serve_mixtral,
-    # serve_vlm, serve_encdec) those phases; no result line
+    # `train`, `train_mesh` and the FAMILY_PHASES names (serve_moe,
+    # serve_mixtral, serve_vlm, serve_encdec) those phases; no result line
     only = None
     if len(argv) == 2 and argv[0] == "--only":
         only = set(argv[1].split(","))
@@ -3860,6 +4046,10 @@ def main(argv) -> int:
             phase = "train"
             torch.cuda.empty_cache()
             phase_train(res, dev)
+        if only is not None and "train_mesh" in only:
+            phase = "train_mesh"
+            torch.cuda.empty_cache()
+            phase_train_mesh(res, dev)
         if only is not None:
             say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
             os.makedirs(OUT_DIR, exist_ok=True)
@@ -3902,6 +4092,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         phase = "train"
         phase_train(res, dev)
+        torch.cuda.empty_cache()
+        phase = "train_mesh"
+        phase_train_mesh(res, dev)
     except Exception:
         say(phase, "FAILED\n" + traceback.format_exc())
         return 1

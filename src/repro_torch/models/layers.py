@@ -7,7 +7,9 @@ apply functions take (params, inputs).  Every matmul weight is read as
 `p[name].to(x.dtype)`, as the reference casts it at each use; a tree whose
 weights were cast once beforehand (`transformer.cast_params`) makes those
 casts free and gives the same bits.  The reference's sharding hints
-(`logical_constraint`) have no mesh here and are dropped.
+(`parallel.sharding.logical_constraint`) stand at its places: they
+redistribute DTensor activations on a mesh and return plain tensors as
+they are.
 
 KV caches are updated in place (the reference returns updated copies):
 prefill writes its slice and decode one slot, instead of rewriting the
@@ -18,6 +20,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import gather_rows, logical_constraint
 
 
 class Draws(list):
@@ -139,6 +143,8 @@ def _project_qkv(p, cfg, x, positions, use_rope=True):
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = logical_constraint(q, ("batch", "heads", None, None))
+    k = logical_constraint(k, ("batch", "kv_heads", None, None))
     return q, k, v
 
 
@@ -170,7 +176,7 @@ def attention_block(p, cfg, x, positions, causal=True, window=None,
         k, v = kv_override
     o = _attention(cfg, q, k, v, causal, window)
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return o @ p["wo"].to(x.dtype)
+    return logical_constraint(o @ p["wo"].to(x.dtype), ("batch", None, None))
 
 
 def attention_prefill(p, cfg, x, positions, cache, window=None,
@@ -263,7 +269,8 @@ def swiglu(p, x):
     dt = x.dtype
     gate = F.silu((x @ p["w_gate"].to(dt)).float())
     up = (x @ p["w_up"].to(dt)).float()
-    return (gate * up).to(dt) @ p["w_down"].to(dt)
+    h = logical_constraint((gate * up).to(dt), ("batch", None, "mlp"))
+    return h @ p["w_down"].to(dt)
 
 
 def init_gelu_mlp(g, d, f, dtype, device):
@@ -289,9 +296,10 @@ def init_embedding(g, vocab, d, dtype, device):
 
 
 def embed(p, tokens, dtype):
-    return p["table"].to(dtype)[tokens]
+    return gather_rows(p["table"].to(dtype), tokens)
 
 
 def unembed(p, x):
     """Logits in float32."""
-    return x.float() @ p["table"].float().T
+    return logical_constraint(x.float() @ p["table"].float().T,
+                              ("batch", None, "vocab"))

@@ -32,6 +32,7 @@ from typing import Mapping
 import torch
 from torch import nn
 
+from ..parallel.sharding import plain_as_replicated
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
@@ -135,25 +136,28 @@ class Model(nn.Module):
         vocab: `logsumexp` minus the gold logit on `tokens[:, 1:]`, meaned
         over the `loss_mask` where the batch has one.  `params` is a flat
         `{dotted path: tensor}` dict (the module's own parameters when
-        None), cast to the activation dtype inside the graph."""
-        logits, aux = T.forward(T.cast_params(_tree(self, params), self.cfg),
-                                self.cfg,
-                                batch["tokens"],
-                                img_embeds=batch.get("img_embeds"),
-                                audio_frames=batch.get("audio_frames"),
-                                use_kernel=self.use_kernel)
-        tgt = batch["tokens"][:, 1:].long()
-        lg = logits[:, :-1]
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
-        nll = logz - gold
-        mask = batch.get("loss_mask")
-        if mask is not None:
-            m = mask[:, 1:].to(torch.float32)
-            nll = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
-        else:
-            nll = nll.mean()
-        return nll + aux
+        None), cast to the activation dtype inside the graph.  With
+        DTensor leaves (`parallel.sharding.place_params`) the batch is
+        placed too (`place_batch`), and the tensors the passes make count
+        as replicated (`sharding.plain_as_replicated`)."""
+        with plain_as_replicated(params):
+            logits, aux = T.forward(
+                T.cast_params(_tree(self, params), self.cfg), self.cfg,
+                batch["tokens"], img_embeds=batch.get("img_embeds"),
+                audio_frames=batch.get("audio_frames"),
+                use_kernel=self.use_kernel)
+            tgt = batch["tokens"][:, 1:].long()
+            lg = logits[:, :-1]
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+            nll = logz - gold
+            mask = batch.get("loss_mask")
+            if mask is not None:
+                m = mask[:, 1:].to(torch.float32)
+                nll = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+            else:
+                nll = nll.mean()
+            return nll + aux
 
     # -- serving ------------------------------------------------------------
     def init_decode_state(self, batch: int, seq: int):

@@ -25,6 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import (full_tensor, gather_rows, logical_constraint,
+                                 replicated)
 from . import layers as L
 
 
@@ -78,13 +80,15 @@ def moe_block(p, cfg, x):
     dev = x.device
 
     probs, topw, topi = route(p, cfg, xf)
+    # the dispatch's integer bookkeeping runs on every (token, k) pair of
+    # the batch: on a mesh, each rank holds all of them
+    flat_e = full_tensor(topi.reshape(-1))                        # [n*k]
     # Switch-style load-balance aux loss
     me = probs.mean(0)
-    ce = torch.bincount(topi.reshape(-1), minlength=e).float() / (n * k)
+    ce = torch.bincount(flat_e, minlength=e).float() / (n * k)
     aux = e * torch.sum(me * ce) * cfg.router_aux_weight
 
     # slot of each (token, k) pair: its rank in its expert's queue
-    flat_e = topi.reshape(-1)                                     # [n*k]
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     experts = torch.arange(e, device=dev)
@@ -99,19 +103,24 @@ def moe_block(p, cfg, x):
     live = pos < end[:, None]
     src = order[torch.where(live, pos.clamp(0, n * k - 1), 0)]
     tok_for_slot = torch.where(live, src // k, n)
-    buf = torch.cat([xf, xf.new_zeros((1, d))])[tok_for_slot]     # [e, cap, d]
+    buf = gather_rows(torch.cat([xf, xf.new_zeros((1, d))]),
+                      tok_for_slot)                               # [e, cap, d]
+    buf = logical_constraint(buf, (None, "batch", None))
     dst = torch.where(keep, flat_e * cap + slot, e * cap)         # combine idx
 
     # stacked expert SwiGLU
     dt = x.dtype
     gate = F.silu(torch.bmm(buf, p["we_gate"].to(dt)).float())
     up = torch.bmm(buf, p["we_up"].to(dt)).float()
-    eo = torch.bmm((gate * up).to(dt), p["we_down"].to(dt))      # [e, cap, d]
+    h = logical_constraint((gate * up).to(dt), (None, "batch", "mlp"))
+    eo = torch.bmm(h, p["we_down"].to(dt))                        # [e, cap, d]
+    eo = logical_constraint(eo, (None, "batch", None))
 
     # gather back, weight, and sum each token's k pairs in float32
-    eo_flat = eo.reshape(e * cap, d)
+    eo_flat = replicated(eo).reshape(e * cap, d)
     gathered = torch.where(keep[:, None],
-                           eo_flat[dst.clamp(0, e * cap - 1)], 0).float()
+                           gather_rows(eo_flat, dst.clamp(0, e * cap - 1)),
+                           0).float()
     out = (gathered * topw.reshape(-1, 1)).reshape(n, k, d).sum(1)
     if cfg.n_shared_experts:
         out = out + L.swiglu(p["shared"], xf).float()

@@ -29,6 +29,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel.sharding import gather_rows, logical_constraint
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -297,11 +298,11 @@ def encode(params, cfg: ModelConfig, audio_frames):
     return x
 
 
-def _embed(params, cfg: ModelConfig, tokens, img_embeds=None):
-    """Token embeddings; for the vlm with `img_embeds` [B, N, D], their
-    projection replaces the first N positions (the reference's prefix)."""
+def _image_prefix(params, cfg: ModelConfig, x, img_embeds=None):
+    """The token embeddings x; for the vlm with `img_embeds` [B, N, D],
+    their projection replaces the first N positions (the reference's
+    prefix)."""
     dt = cfg.act_dtype
-    x = L.embed(params["embed"], tokens, dt)
     if cfg.family == "vlm" and img_embeds is not None:
         img = img_embeds.to(dt) @ params["img_proj"].to(dt)
         x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
@@ -359,12 +360,14 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
             audio_frames=None, use_kernel=False):
     """tokens [B, T] -> (logits [B, T, V], aux loss: the MoE blocks' summed
     over layers, else 0)."""
-    x = _embed(params, cfg, tokens, img_embeds)
+    x = L.embed(params["embed"], tokens, cfg.act_dtype)
+    x = _image_prefix(params, cfg, logical_constraint(x, ("batch", None, None)),
+                      img_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "encdec":
         enc = encode(params, cfg, _audio(cfg, audio_frames))
-        x = x + params["dec_pos"][positions].to(x.dtype)[None]
+        x = x + gather_rows(params["dec_pos"], positions).to(x.dtype)[None]
         for lp in params["dec_layers"]:
             x, _ = _remat(_dec_layer, cfg)(lp, cfg, x, positions, enc)
         return _logits(params, cfg, x), aux
@@ -389,7 +392,9 @@ def prefill(params, cfg: ModelConfig, batch: dict, state, use_kernel=False):
     [B, 1, V], the filled state).  One fused pass, no token-by-token
     replay."""
     tokens = batch["tokens"]
-    x = _embed(params, cfg, tokens, batch.get("img_embeds"))
+    x = _image_prefix(params, cfg,
+                      L.embed(params["embed"], tokens, cfg.act_dtype),
+                      batch.get("img_embeds"))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     if cfg.family == "encdec":
         enc = encode(params, cfg, _audio(cfg, batch.get("audio_frames")))

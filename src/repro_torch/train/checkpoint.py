@@ -23,6 +23,14 @@ replacing the step it reads (a retry right after a checkpoint), and finds
 leaf files gone or an older LATEST.  Restore never needs the saving
 device: leaves load as host arrays and are copied onto the target device.
 The manifest hash check catches partial or corrupt writes.
+
+On a mesh (`parallel.sharding`), a DTensor leaf is saved whole
+(`full_tensor()`, a collective every rank joins), in the same format and
+hashes, and rank 0 of the process group alone writes and collects old
+steps; a waited save returns on every rank once the step is on disk.
+Restore places each leaf by its sharding (given, or the `like` leaf's
+own): every rank loads the whole leaf and keeps its own slice (elastic
+re-shard: a checkpoint saved on one mesh restores onto any other).
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.sharding import NamedSharding, full_tensor, is_dtensor, shard
 
 _WRITERS: dict = {}  # directory -> the last writer thread
 _WRITERS_MU = threading.Lock()
@@ -64,10 +75,19 @@ def _unflatten(like, leaves: dict, prefix: str = ""):
     return leaves[prefix[:-1]]
 
 
+def _ranks() -> tuple:
+    """(this process's rank, the world size) of the default process
+    group; (0, 1) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _to_host(leaf) -> tuple:
-    """(numpy array of the leaf's bytes, dtype name): a copy."""
+    """(numpy array of the leaf's bytes, dtype name): a copy; a DTensor
+    whole."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = full_tensor(leaf.detach()).to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         return t.numpy(), str(t.numpy().dtype)
@@ -82,8 +102,14 @@ def _sha(arr: np.ndarray) -> str:
 def save_checkpoint(directory: str, step: int, tree, wait: bool = True
                     ) -> threading.Thread:
     """Host-gather `tree` and write step_<step>.  Async unless wait=True;
-    a save first waits for the directory's previous writer."""
+    a save first waits for the directory's previous writer.  Under a
+    process group of more than one rank every rank must call it (DTensor
+    leaves gather whole); rank 0 writes, and with wait=True every rank
+    returns after the write."""
     host = [(name, *_to_host(leaf)) for name, leaf in flatten(tree)]
+    rank, world = _ranks()
+    if rank != 0:  # rank 0 writes
+        host = []
     error: list = []
 
     def write():
@@ -113,13 +139,16 @@ def save_checkpoint(directory: str, step: int, tree, wait: bool = True
 
     with _WRITERS_MU:
         _drain(directory)
-        t = threading.Thread(target=write, daemon=True)
+        t = threading.Thread(target=write if rank == 0 else (lambda: None),
+                             daemon=True)
         t.start()
         _WRITERS[os.path.abspath(directory)] = t
     if wait:
         t.join()
         if error:
             raise error[0]
+        if world > 1:
+            dist.barrier()
     return t
 
 
@@ -152,13 +181,15 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore_checkpoint(directory: str, like, step: Optional[int] = None,
-                       device=None, verify: bool = True):
+                       device=None, shardings=None, verify: bool = True):
     """Restore into the structure of `like` (a tree of tensors): each leaf
-    in its `like` leaf's dtype, on `device` (each `like` leaf's own device
-    when None).  -> (tree, step).  Raises FileNotFoundError without a
-    checkpoint, KeyError for a leaf the checkpoint lacks, IOError for a
-    leaf whose bytes do not match their hash and ValueError for a shape
-    mismatch."""
+    in its `like` leaf's dtype, placed by its `NamedSharding` in
+    `shardings` (a tree of the same structure, for the TARGET mesh) or,
+    without one, as its `like` leaf is: a DTensor's placement, else on
+    `device` (each `like` leaf's own device when None).  -> (tree, step).
+    Raises FileNotFoundError without a checkpoint, KeyError for a leaf
+    the checkpoint lacks, IOError for a leaf whose bytes do not match
+    their hash and ValueError for a shape mismatch."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -170,6 +201,7 @@ def restore_checkpoint(directory: str, like, step: Optional[int] = None,
         manifest = json.load(f)
 
     by_path = {m["path"]: m for m in manifest["leaves"]}
+    placed = dict(flatten(shardings)) if shardings is not None else {}
     leaves = {}
     for name, leaf in flatten(like):
         if name not in by_path:
@@ -181,16 +213,24 @@ def restore_checkpoint(directory: str, like, step: Optional[int] = None,
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {name}: "
                              f"{arr.shape} vs {tuple(leaf.shape)}")
-        leaves[name] = _from_host(arr, m["dtype"]).to(
-            device=leaf.device if device is None else device,
-            dtype=leaf.dtype)
+        sharding = placed.get(name) or _sharding_of(leaf)
+        t = _from_host(arr, m["dtype"]).to(dtype=leaf.dtype)
+        leaves[name] = shard(t, sharding) if sharding is not None else t.to(
+            leaf.device if device is None else device)
     return _unflatten(like, leaves), step
+
+
+def _sharding_of(leaf) -> Optional[NamedSharding]:
+    """A DTensor's layout; None for any other leaf."""
+    return (NamedSharding(leaf.device_mesh, tuple(leaf.placements))
+            if is_dtensor(leaf) else None)
 
 
 def keep_last(directory: str, n: int = 3):
     """Garbage-collect all but the newest n checkpoints (tolerates racing
-    the async writer: the directory may not exist yet)."""
-    if not os.path.isdir(directory):
+    the async writer: the directory may not exist yet).  Rank 0 alone
+    collects under a process group."""
+    if _ranks()[0] != 0 or not os.path.isdir(directory):
         return
     steps = sorted(int(d.split("_")[1]) for d in os.listdir(directory)
                    if d.startswith("step_"))

@@ -1,5 +1,5 @@
 """Fault tolerance: preemption checkpointing, straggler watchdog, retries,
-restore onto a device.
+elastic rescale.
 
 Port of `repro.train.fault`.  Components (all host-side; the step itself
 stays a function of its inputs, `train.train_step`):
@@ -9,14 +9,16 @@ stays a function of its inputs, `train.train_step`):
   transient step failures up to `max_retries` by restoring the last
   checkpoint, and drains a final sync checkpoint on preemption (SIGTERM).
   A step's time is taken after its loss reaches the host (`.item()`),
-  which waits for the card.
+  which waits for the card.  A restore keeps the placement of the state
+  it restores into: DTensor leaves come back on their mesh, laid out as
+  they were.
 
 * `StragglerWatchdog` — per-step deadline monitor: records a step past its
   deadline and calls the injectable policy hook.
 
-* `elastic_restore` — restore a checkpoint onto a device.  On one card
-  that is all there is to place; restoring onto a mesh with its shardings
-  waits for the port of `parallel.sharding`.
+* `elastic_restore` — restore a checkpoint saved under any mesh onto the
+  current mesh (each rank keeps its slice of every leaf:
+  checkpoint.restore_checkpoint with target shardings).
 
 * Deterministic data-pipeline replay: the batch function is a pure
   function of (seed, step), so a restore at step k reproduces the exact
@@ -30,6 +32,7 @@ import signal
 import time
 from typing import Callable, Optional
 
+from ..parallel.sharding import named_shardings
 from . import checkpoint as ckpt
 
 
@@ -126,8 +129,10 @@ class Supervisor:
         return {"params": tree["params"], "opt": tree["opt"], "step": step}
 
 
-def elastic_restore(ckpt_dir: str, like, device=None):
+def elastic_restore(ckpt_dir: str, like, mesh, pspec_fn):
     """Restore the newest checkpoint under `ckpt_dir` into the structure
-    of `like`, onto `device` (each `like` leaf's own device when None),
-    whatever device saved it.  -> (tree, step)."""
-    return ckpt.restore_checkpoint(ckpt_dir, like, device=device)
+    of `like`, onto `mesh` with the shardings of the specs
+    `pspec_fn(like, mesh)` gives (`parallel.sharding.validated_pspecs`),
+    whatever mesh saved it.  -> (tree, step)."""
+    shardings = named_shardings(like, pspec_fn(like, mesh), mesh)
+    return ckpt.restore_checkpoint(ckpt_dir, like, shardings=shardings)

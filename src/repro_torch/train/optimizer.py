@@ -7,7 +7,9 @@ moments float32 whatever the parameter dtype.  The update is pure, as the
 reference's: it returns new tensors and writes into none of its inputs, so
 one `params` may feed two steps.  The math is float32, one leaf at a time;
 the schedule, clip scale and bias corrections stay 0-d tensors on the
-parameters' device, so a step never waits on the card.
+parameters' device, so a step never waits on the card.  DTensor leaves on
+a mesh (`parallel.sharding`) take the same math, their moments laid out
+alike.
 """
 
 from __future__ import annotations
@@ -52,12 +54,12 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
+    """Zero moments laid out as their parameters (DTensors placed alike
+    on a mesh) and a 0-d int32 count on the parameters' device."""
     device = next(iter(params.values())).device
-    return {"mu": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    return {"mu": {k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.items()},
-            "nu": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+            "nu": {k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 

@@ -6,8 +6,10 @@ as the reference's: it reads `params` (a flat `{dotted path: tensor}`
 dict, `Model.master_params`) and the optimizer state, writes into
 neither, and returns new ones.  Gradients come from `torch.autograd.grad`
 on leaves detached from the caller's tensors; a leaf the loss does not
-reach gets a zero gradient, as `jax.grad` gives it.  No sharding: the mesh
-rules (`parallel.sharding`) wait for their own slice.
+reach gets a zero gradient, as `jax.grad` gives it.  On a mesh the leaves
+are DTensors placed by `parallel.sharding.validated_pspecs` and the batch
+is placed by `batch_pspec`; the step means the same, each gradient comes
+out laid out as its parameter, and the metrics come out whole.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import dataclasses
 import torch
 
 from ..models.model import Model
+from ..parallel.sharding import (full_tensor, placed_as,
+                                 plain_as_replicated)
 from . import compression
 from .optimizer import AdamWConfig, adamw_update, init_opt_state  # noqa: F401
 
@@ -36,10 +40,14 @@ def loss_and_grads(model: Model, params, batch):
     """(loss, {path: gradient in the parameter's dtype}) of `model.loss`
     at `params`, neither attached to a graph."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss = model.loss(batch, leaves)
-    gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
-                           for (k, v), g in zip(leaves.items(), gs)}
+    with plain_as_replicated(params):
+        loss = model.loss(batch, leaves)
+        gs = torch.autograd.grad(loss, list(leaves.values()),
+                                 allow_unused=True)
+        # on a mesh, each gradient laid out as its parameter
+        grads = {k: torch.zeros_like(v) if g is None else placed_as(g, v)
+                 for (k, v), g in zip(leaves.items(), gs)}
+    return loss.detach(), grads
 
 
 def _micro_slice(batch: dict, i: int, n: int) -> dict:
@@ -55,6 +63,10 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                          f"{tcfg.microbatch_impl!r}")
 
     def train_step(params, opt_state, batch, step):
+        with plain_as_replicated(params):
+            return _step(params, opt_state, batch, step)
+
+    def _step(params, opt_state, batch, step):
         n = tcfg.microbatches
         if n > 1:
             gsum = lsum = None
@@ -77,7 +89,8 @@ def make_train_step(model: Model, tcfg: TrainConfig):
 
         params2, opt2, metrics = adamw_update(tcfg.opt, params, grads,
                                               opt_state)
-        return params2, opt2, dict(metrics, loss=loss)
+        return params2, opt2, {k: full_tensor(v) for k, v in
+                               dict(metrics, loss=loss).items()}
 
     return train_step
 

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain torch version,
 the data-flow main path with the kernels against the eager executor, the
-sharded executor on 8 shards against the port on the CPU, and the served
-models' kernel paths against their plain paths.
+sharded executor on 8 shards against the port on the CPU, the served
+models' kernel paths against their plain paths, and the train step placed
+on the card's one-rank NCCL mesh against the plain step.
 
 Marked `cuda`; every test skips without a CUDA device (the kernels have no
 CPU mode).  Imports no JAX, so it runs on a machine that has only the port:
@@ -949,3 +950,51 @@ def test_cuda_train_step_matches_cpu(cuda):
                                        rtol=0)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b", "rwkv6-3b",
+                                  "recurrentgemma-2b", "whisper-tiny",
+                                  "phi-3-vision-4.2b"])
+def test_cuda_placed_train_step_matches_plain(cuda, arch):
+    """`launch.train`'s placed path on the card's one-rank NCCL mesh: the
+    parameters placed by `validated_pspecs`, the batch by `batch_pspec`;
+    two steps of the REDUCED model equal the plain step's bit for bit, and
+    every leaf keeps its placement."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import (full_tensor, place_batch,
+                                               place_params)
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    mesh = make_host_mesh(("data",), "cuda")
+    cfg = get_config(arch, reduced=True)
+    model = make_model(cfg, cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    step = make_train_step(model, TrainConfig())
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=4, seq=64, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["img_embeds"] = torch.randn(
+            (4, cfg.n_img_tokens, cfg.d_model), generator=g, device=cuda)
+    if cfg.family == "encdec":
+        extra["audio_frames"] = torch.randn(
+            (4, cfg.n_audio_frames, cfg.d_model), generator=g, device=cuda)
+    plain = model.master_params()
+    placed = place_params(plain, mesh)
+    po, qo = init_opt_state(plain), init_opt_state(placed)
+    for s in range(2):
+        batch = dict(pipe(s), **extra)
+        plain, po, mp = step(plain, po, batch, s)
+        placed, qo, mq = step(placed, qo, place_batch(batch, mesh), s)
+        assert torch.equal(mp["loss"], mq["loss"]), (
+            s, float(mp["loss"]), float(mq["loss"]))
+    for k, v in placed.items():
+        assert str(v.device_mesh.device_type) == "cuda"
+        assert v.placements == place_params({k: plain[k]}, mesh)[k].placements
+    bad = {k: float((full_tensor(v) - plain[k]).abs().max())
+           for k, v in placed.items() if not torch.equal(full_tensor(v),
+                                                         plain[k])}
+    assert not bad, bad

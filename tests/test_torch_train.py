@@ -38,8 +38,11 @@ from repro_torch import interop
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import invoke
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import make_model
 from repro_torch.models import moe as TMOE
+from repro_torch.parallel.sharding import (full_tensor, place_batch,
+                                           place_params, validated_pspecs)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as topt
@@ -496,9 +499,13 @@ def test_checkpoint_roundtrip_and_gc(tmp_path):
     assert step == 20
     for (pa, a), (pb, b) in zip(ckpt.flatten(got), ckpt.flatten(tree)):
         assert pa == pb and a.dtype == b.dtype and torch.equal(a, b)
-    got, step = elastic_restore(d, tree, "cpu")
-    assert step == 20 and torch.equal(got["opt"]["count"],
+    mesh = make_host_mesh(("data",), "cpu")
+    got, step = elastic_restore(d, tree, mesh, validated_pspecs)
+    assert step == 20 and torch.equal(got["opt"]["count"].full_tensor(),
                                       tree["opt"]["count"])
+    for (pa, a), (pb, b) in zip(ckpt.flatten(got), ckpt.flatten(tree)):
+        assert pa == pb and a.device_mesh == mesh
+        assert torch.equal(a.full_tensor(), b)
     with pytest.raises(FileNotFoundError):
         ckpt.restore_checkpoint(str(tmp_path / "none"), tree)
 
@@ -720,10 +727,13 @@ def test_sigterm_drains_a_final_save(tmp_path):
 # ---------------------------------------------------------------------------
 # The default dtype (ROADMAP Queue 3 item 5)
 # ---------------------------------------------------------------------------
-def _x64_step(tmp_path, model, batch):
+def _x64_step(tmp_path, model, batch, mesh=None):
     """A compressed, microbatched train step, a checkpoint save and its
-    restore; returns everything they made."""
+    restore (placed on `mesh` by `validated_pspecs` where one is given);
+    returns everything they made, whole."""
     params = model.master_params()
+    if mesh is not None:
+        params, batch = place_params(params, mesh), place_batch(batch, mesh)
     opt = topt.init_opt_state(params)
     step = make_train_step(model, TrainConfig(
         microbatches=2, compress_grads=True,
@@ -732,7 +742,8 @@ def _x64_step(tmp_path, model, batch):
     d = str(tmp_path / f"x64_{len(os.listdir(tmp_path))}")
     ckpt.save_checkpoint(d, 1, {"params": p, "opt": o})
     tree, _ = ckpt.restore_checkpoint(d, {"params": p, "opt": o})
-    return [x for _, x in ckpt.flatten({"p": p, "o": o, "m": m, "r": tree})]
+    return [full_tensor(x)
+            for _, x in ckpt.flatten({"p": p, "o": o, "m": m, "r": tree})]
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
@@ -740,9 +751,11 @@ def test_train_path_ignores_a_udf_holding_float64_default(tmp_path, arch,
                                                          deterministic):
     """A UDF held open in another thread keeps torch's default dtype at
     float64 for the whole process (`core.invoke._x64`); a train step run
-    meanwhile gives the bits it gives without it, and nothing float64."""
+    meanwhile, plain and placed on the one-rank mesh, gives the bits the
+    plain step gives without it, and nothing float64."""
     _, _, model = _pair(arch)
     batch = _tb(_np_batch(model.cfg, 4, 32, seed=0))
+    mesh = make_host_mesh(("data",), "cpu")
     want = _x64_step(tmp_path, model, batch)
 
     inside, release = threading.Event(), threading.Event()
@@ -759,15 +772,16 @@ def test_train_path_ignores_a_udf_holding_float64_default(tmp_path, arch,
         assert inside.wait(timeout=60)
         assert torch.get_default_dtype() == torch.float64
         got = _x64_step(tmp_path, model, batch)
+        placed = _x64_step(tmp_path, model, batch, mesh)
     finally:
         release.set()
         th.join(timeout=60)
     assert not th.is_alive()
     assert torch.get_default_dtype() == torch.float32
-    assert len(got) == len(want)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and a.dtype != torch.float64
-        assert torch.equal(a, b)
+    assert len(got) == len(want) == len(placed)
+    for a, b, c in zip(got, want, placed):
+        assert a.dtype == b.dtype == c.dtype and a.dtype != torch.float64
+        assert torch.equal(a, b) and torch.equal(c, b)
 
 
 # ---------------------------------------------------------------------------
