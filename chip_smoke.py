@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only flash,serve_moe,serve_mixtral,serve_vlm,serve_encdec
     python3 chip_smoke.py --only train         # build + the train phase
     python3 chip_smoke.py --only train_mesh    # build + the placed train step
+    python3 chip_smoke.py --only dryrun        # build + the dry-run's checks
 
 Drives the port's main paths through the hand-written CUDA kernels
 (`src/repro_torch/csrc/`): the data-flow path — flow build + SCA ->
@@ -190,6 +191,18 @@ Phases, one or more lines each:
            validated_pspecs), bit for bit with every placement kept; both
            steps timed in turns on the final states, profiled (device
            kernels, busy, idle share against the median step)
+  dryrun   launch.dryrun under the card's torch: qwen3-0.6b x train_4k,
+           qwen2-moe-a2.7b x prefill_32k and rwkv6-3b x long_500k on
+           torch's fake process group (16x16, 256 ranks), one CLI process
+           each on the CPU with a time limit, each row [ok] (bound,
+           useful_ratio, roofline_fraction, fit peak, wall time); while
+           they run, the dry-run's count of the train phase's cell
+           (qwen3-0.6b FULL, 8 x 512, registry config) on meta tensors
+           placed on the card's one-rank NCCL mesh against one real plain
+           step on the card: FLOPs equal to FlopCounterMode's, the
+           predicted peak within 15% of the step's max_memory_allocated,
+           the bound max(t_compute, t_memory) at or below the median of 5
+           steps
 
 The line before the last is a JSON object of the kernels' numbers, the last
 `{"ok": true, "device": {...}}`.  Any failed phase, a missing CUDA device or
@@ -313,6 +326,17 @@ MEMO_STEPS = 20                 # steps on one repeated batch
 # launch.train's placed path against the plain step: supervised steps of
 # each, then warm steps of each taken in turns
 TRAIN_MESH_STEPS, TRAIN_MESH_ROUNDS = 4, 5
+# the dry-run (launch.dryrun) on the card's torch: three production cells
+# on torch's fake process group (16x16), one CLI process each, on the CPU,
+# within DRYRUN_TIMEOUT_S; then its count of the train phase's own cell on
+# the card's one-rank mesh against a real plain step: FLOPs equal to
+# FlopCounterMode's, the predicted peak within DRYRUN_PEAK_TOL of the
+# step's, the roofline bound at or below the median of DRYRUN_STEPS steps
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen2-moe-a2.7b", "prefill_32k"),
+                ("rwkv6-3b", "long_500k"))
+DRYRUN_TIMEOUT_S = 480
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_STEPS = 5
 # card against CPU, float32 with TF32 off: loss, every gradient leaf (atol
 # + rtol, as tests/test_models.py holds remat against no remat) and the
 # parameters after one AdamW step
@@ -3988,6 +4012,178 @@ def phase_train_mesh(res: dict, dev) -> None:
     say("train_mesh", f"ok {tm['seconds']:.1f}s")
 
 
+def _dryrun_processes(out_dir: str) -> list:
+    """One `python -m repro_torch.launch.dryrun --mesh single` process per
+    DRYRUN_CELLS cell, started at once, on the CPU (no CUDA device
+    visible): [(arch, shape, process, JSON path, log file)]."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(out_dir, f"dryrun_{arch}_{shape}.json")
+        log = open(os.path.join(out_dir, f"dryrun_{arch}_{shape}.log"), "w")
+        procs.append((arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out],
+            stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+            env=env, cwd=ROOT), out, log))
+    return procs
+
+
+def _dryrun_rows(dr: dict, procs: list, t0: float) -> None:
+    """Wait for the dry-run processes until DRYRUN_TIMEOUT_S after `t0`;
+    each must exit 0 with its cell `[ok]`: a row with a roofline and a fit
+    peak.  (The caller kills what still runs.)"""
+    deadline = t0 + DRYRUN_TIMEOUT_S
+    for arch, shape, p, out, log in procs:
+        p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+        if p.returncode != 0:
+            raise AssertionError(f"dry-run of {arch} x {shape} exited "
+                                 f"{p.returncode}; see {log.name}")
+    dr["cells"] = []
+    for arch, shape, _, out, _ in procs:
+        with open(out) as f:
+            row, = json.load(f)
+        rl = row.get("roofline")
+        mem = row.get("fit_memory", row.get("memory", {}))
+        if "error" in row or rl is None or "peak_bytes" not in mem:
+            raise AssertionError(f"dry-run cell not ok: {row}")
+        dr["cells"].append(row)
+        say("dryrun", f"[ok] {arch} x {shape} on {row['mesh']} "
+            f"({row['chips']} ranks of torch's fake group): bound "
+            f"{rl['bottleneck']}, useful_ratio {rl['useful_ratio']:.4f}, "
+            f"roofline_fraction {rl['roofline_fraction']:.5f}, fit peak "
+            f"{mem['peak_bytes'] / 2**30:.2f} GiB a rank, probes "
+            f"{row.get('probe_depths')}, counted in {row['compile_s']:.1f}s "
+            f"+ fit {row.get('fit_compile_s', 0):.1f}s")
+    dr["cells_wall_s"] = time.perf_counter() - t0
+    say("dryrun", f"the {len(procs)} cells' processes took "
+        f"{dr['cells_wall_s']:.1f}s of wall time")
+
+
+def phase_dryrun(res: dict, dev) -> None:
+    """launch.dryrun on the card's torch: DRYRUN_CELLS in processes of their
+    own (on the CPU, torch's fake group of 256 ranks), while this process
+    counts the train phase's cell — qwen3-0.6b FULL, the registry config,
+    TRAIN_BATCH x TRAIN_SEQ — with the dry-run's own functions on meta
+    tensors placed on the card's one-rank NCCL mesh, and runs the same
+    step for real, plain, on the card: (a) the counted FLOPs equal
+    FlopCounterMode's over the real step; (b) the predicted peak is within
+    DRYRUN_PEAK_TOL of the step's `max_memory_allocated`; (c) the roofline
+    bound max(t_compute, t_memory) is at or below the median step."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_model
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    dr = res["dryrun"] = {}
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    procs = _dryrun_processes(OUT_DIR)
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        shape = ShapeSpec("train_phase", "train", TRAIN_SEQ, TRAIN_BATCH)
+        mesh = make_host_mesh(("data",), "cuda")
+        t = time.perf_counter()
+        counted = D._lower_for_kind(make_model(cfg, "meta"), cfg, shape,
+                                    mesh).compile()
+        count_s = time.perf_counter() - t
+        m = D._measure(counted)
+        mem = RL.memory_summary(counted)
+        rl = RL.analyze(m, RL.model_flops_for(cfg, "train", tokens), 1)
+        dr["count"] = {"counts": m, "memory": mem, "roofline": rl.row(),
+                       "seconds": count_s, "backend": str(dist.get_backend())}
+        say("dryrun", f"counted on the card's one-rank "
+            f"{dr['count']['backend']} mesh ({cfg.name} FULL, {TRAIN_BATCH}"
+            f" x {TRAIN_SEQ}, meta tensors, {count_s:.1f}s): "
+            f"{m['flops']:.6e} FLOPs, {m['hbm']:.6e} bytes, collectives "
+            f"{m['coll']}; argument {mem['argument_bytes']:,} B, temp "
+            f"{mem['temp_bytes']:,} B, predicted peak "
+            f"{mem['peak_bytes']:,} B; t_compute {rl.t_compute * 1e3:.3f} "
+            f"ms, t_memory {rl.t_memory * 1e3:.3f} ms")
+
+        model = make_model(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(SERVE_SEED))
+        params = model.master_params()
+        opt = init_opt_state(params)
+        batch = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                              seq=TRAIN_SEQ, device=dev)(0)
+        step = make_train_step(model, TrainConfig())
+        step(params, opt, batch, 0)   # warm: cuBLAS handles
+        torch.cuda.synchronize()
+        with FlopCounterMode(display=False) as fc:
+            out = step(params, opt, batch, 0)
+            torch.cuda.synchronize()
+        del out
+        flops = fc.get_total_flops()
+        torch.cuda.empty_cache()
+        args = RL.local_bytes((params, opt, batch))
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(params, opt, batch, 0)
+        torch.cuda.synchronize()
+        raw_peak = torch.cuda.max_memory_allocated()
+        del out
+        step_peak = raw_peak - before + args
+        times = []
+        for _ in range(DRYRUN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(params, opt, batch, 0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            del out
+        median = float(np.median(times))
+        bound_ms = max(rl.t_compute, rl.t_memory) * 1e3
+        peak_err = (mem["peak_bytes"] - step_peak) / step_peak
+        dr["real"] = {"flops": flops, "max_memory_allocated": raw_peak,
+                      "allocated_before": before, "argument_bytes": args,
+                      "step_peak": step_peak, "step_ms": times,
+                      "median_ms": median}
+        dr["checks"] = {"flops_equal": m["flops"] == flops,
+                        "peak_rel_err": peak_err,
+                        "bound_ms": bound_ms,
+                        "bound_over_median": bound_ms / median}
+        same = "equal" if flops == m["flops"] else "NOT equal"
+        say("dryrun", f"{res['nvidia_smi']}: the real plain step on the "
+            f"card, FlopCounterMode {flops:.6e} FLOPs against the count "
+            f"{m['flops']:.6e}: {same}")
+        say("dryrun", f"max_memory_allocated over the step {raw_peak:,} B "
+            f"({before:,} B allocated before it, the step's arguments "
+            f"{args:,} B): the step's peak {step_peak:,} B against the "
+            f"predicted {mem['peak_bytes']:,} B, {peak_err:+.2%} "
+            f"(limit {DRYRUN_PEAK_TOL:.0%})")
+        say("dryrun", f"bound max(t_compute, t_memory) {bound_ms:.3f} ms "
+            f"({rl.bottleneck}) against the median of {DRYRUN_STEPS} steps "
+            f"{median:.1f} ms (steps {', '.join(f'{x:.1f}' for x in times)}"
+            f"): ratio {bound_ms / median:.4f}")
+        del params, opt, batch, model
+        if flops != m["flops"] or abs(peak_err) > DRYRUN_PEAK_TOL \
+                or bound_ms > median:
+            raise AssertionError(f"dry-run count against the real step: "
+                                 f"{dr['checks']}")
+        _dryrun_rows(dr, procs, t0)
+    finally:
+        for _, _, p, _, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    dr["seconds"] = time.perf_counter() - t0
+    say("dryrun", f"ok {dr['seconds']:.1f}s")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3999,7 +4195,7 @@ def main(argv) -> int:
     # `--only probe,flash,...`: the build and the named kernel checks
     # alone, for a short run while a kernel changes; `dataflow` adds the
     # flows, timing and profile phases, `adaptive`, `serving`, `mesh`,
-    # `train`, `train_mesh` and the FAMILY_PHASES names (serve_moe,
+    # `train`, `train_mesh`, `dryrun` and the FAMILY_PHASES names (serve_moe,
     # serve_mixtral, serve_vlm, serve_encdec) those phases; no result line
     only = None
     if len(argv) == 2 and argv[0] == "--only":
@@ -4050,6 +4246,10 @@ def main(argv) -> int:
             phase = "train_mesh"
             torch.cuda.empty_cache()
             phase_train_mesh(res, dev)
+        if only is not None and "dryrun" in only:
+            phase = "dryrun"
+            torch.cuda.empty_cache()
+            phase_dryrun(res, dev)
         if only is not None:
             say("done", f"--only {sorted(only)}: {time.perf_counter() - t0:.1f}s")
             os.makedirs(OUT_DIR, exist_ok=True)
@@ -4095,6 +4295,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         phase = "train_mesh"
         phase_train_mesh(res, dev)
+        torch.cuda.empty_cache()
+        phase = "dryrun"
+        phase_dryrun(res, dev)
     except Exception:
         say(phase, "FAILED\n" + traceback.format_exc())
         return 1

@@ -21,7 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import gather_rows, logical_constraint
+from ..parallel.sharding import (dense, gather_rows, heads_local,
+                                 logical_constraint, merge_heads,
+                                 split_dim)
 
 
 class Draws(list):
@@ -127,16 +129,16 @@ def _project_qkv(p, cfg, x, positions, use_rope=True):
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = dense(x, p["wq"].to(dt))
+    k = dense(x, p["wk"].to(dt))
+    v = dense(x, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = q.reshape(b, t, hq, dh).transpose(1, 2)
-    k = k.reshape(b, t, hkv, dh).transpose(1, 2)
-    v = v.reshape(b, t, hkv, dh).transpose(1, 2)
+    q = split_dim(q, -1, hq, dh).transpose(1, 2)
+    k = split_dim(k, -1, hkv, dh).transpose(1, 2)
+    v = split_dim(v, -1, hkv, dh).transpose(1, 2)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -159,9 +161,10 @@ def _attention(cfg, q, k, v, causal, window):
         return kops.flash_attention(q, k, v, causal=causal, window=window)
     from ..kernels import ref
 
-    if cfg.attn_impl == "blocked":
-        return ref.blocked_attention(q, k, v, causal=causal, window=window)
-    return ref.attention(q, k, v, causal=causal, window=window)
+    fn = ref.blocked_attention if cfg.attn_impl == "blocked" \
+        else ref.attention
+    # on a mesh, each rank's own batch rows and heads
+    return heads_local(fn, q, k, v, causal=causal, window=window)
 
 
 def attention_block(p, cfg, x, positions, causal=True, window=None,
@@ -175,8 +178,9 @@ def attention_block(p, cfg, x, positions, causal=True, window=None,
     if kv_override is not None:
         k, v = kv_override
     o = _attention(cfg, q, k, v, causal, window)
-    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return logical_constraint(o @ p["wo"].to(x.dtype), ("batch", None, None))
+    o = merge_heads(o)
+    return logical_constraint(dense(o, p["wo"].to(x.dtype)),
+                              ("batch", None, None))
 
 
 def attention_prefill(p, cfg, x, positions, cache, window=None,
@@ -197,8 +201,8 @@ def attention_prefill(p, cfg, x, positions, cache, window=None,
     cache["v"][:, :, :n] = v[:, :, t - n:]
     cache["pos"] = t
     o = _attention(cfg, q, k, v, True, window)
-    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return o @ p["wo"].to(x.dtype), cache
+    o = merge_heads(o)
+    return dense(o, p["wo"].to(x.dtype)), cache
 
 
 def attention_decode(p, cfg, x, cache, window=None, use_rope=True):
@@ -235,15 +239,14 @@ def attention_decode(p, cfg, x, cache, window=None, use_rope=True):
     hq, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     group = hq // hkv
     qf = q.to(ck.dtype) * dh ** -0.5
-    qg = qf.reshape(b, hkv, group, dh).float()
+    qg = split_dim(qf[:, :, 0], 1, hkv, group).float()
     logits = qg @ ck.float().transpose(-1, -2)          # [b, hkv, g, s]
     logits = logits.masked_fill(~live, float("-inf"))
     w = torch.softmax(logits, dim=-1)
     o = w.to(cv.dtype).float() @ cv.float()             # [b, hkv, g, dh]
-    o = o.reshape(b, hq, 1, dh).to(x.dtype)
-    o = o.transpose(1, 2).reshape(b, 1, hq * dh)
+    o = merge_heads(o.reshape(b, hq, 1, dh).to(x.dtype))
     cache["pos"] = pos + 1
-    return o @ p["wo"].to(x.dtype), cache
+    return dense(o, p["wo"].to(x.dtype)), cache
 
 
 def init_kv_cache(cfg, batch: int, seq: int, device, window=None,
@@ -267,10 +270,10 @@ def init_swiglu(g, d, f, dtype, device):
 
 def swiglu(p, x):
     dt = x.dtype
-    gate = F.silu((x @ p["w_gate"].to(dt)).float())
-    up = (x @ p["w_up"].to(dt)).float()
+    gate = F.silu(dense(x, p["w_gate"].to(dt)).float())
+    up = dense(x, p["w_up"].to(dt)).float()
     h = logical_constraint((gate * up).to(dt), ("batch", None, "mlp"))
-    return h @ p["w_down"].to(dt)
+    return dense(h, p["w_down"].to(dt))
 
 
 def init_gelu_mlp(g, d, f, dtype, device):
@@ -283,9 +286,9 @@ def init_gelu_mlp(g, d, f, dtype, device):
 def gelu_mlp(p, x):
     # jax.nn.gelu defaults to the tanh approximation
     dt = x.dtype
-    h = F.gelu((x @ p["w_up"].to(dt) + p["b_up"].to(dt)).float(),
+    h = F.gelu((dense(x, p["w_up"].to(dt)) + p["b_up"].to(dt)).float(),
                approximate="tanh").to(dt)
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+    return dense(h, p["w_down"].to(dt)) + p["b_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -301,5 +304,5 @@ def embed(p, tokens, dtype):
 
 def unembed(p, x):
     """Logits in float32."""
-    return logical_constraint(x.float() @ p["table"].float().T,
+    return logical_constraint(dense(x.float(), p["table"].float().T),
                               ("batch", None, "vocab"))

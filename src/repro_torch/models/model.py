@@ -32,7 +32,8 @@ from typing import Mapping
 import torch
 from torch import nn
 
-from ..parallel.sharding import plain_as_replicated
+from ..parallel.sharding import (is_dtensor, logical_constraint,
+                                 plain_as_replicated)
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
@@ -61,6 +62,36 @@ def _tree(module: nn.Module, flat: Mapping | None = None, prefix: str = ""):
     out.update(module._parameters if flat is None else
                {k: flat[prefix + k] for k in module._parameters})
     return out
+
+
+def _nll(lg: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """logsumexp(lg) - lg[tgt] over the last dim (the vocab), float32.
+    A DTensor split over the vocab takes a vocab-parallel form
+    of the same numbers: torch's own logsumexp written out (the max,
+    non-finite maxes set to 0, log of the sum of exp(lg - max), plus the
+    max), the max out of the graph (its gradient is zero), and the gold
+    logit as the sum over the vocab of lg where the vocab id is the
+    target (one term, so the gather's value).  Each rank reduces its own
+    slice of the vocab, and only [B, T] partial results cross the mesh
+    (DTensor would gather the whole logits for logsumexp and gather)."""
+    d = lg.ndim - 1
+    if not (is_dtensor(lg) and any(p.is_shard(d) for p in lg.placements)):
+        return torch.logsumexp(lg, dim=-1) \
+            - torch.gather(lg, -1, tgt[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    ids = distribute_tensor(
+        torch.arange(lg.shape[d], device=lg.device), lg.device_mesh,
+        [Shard(0) if p.is_shard(d) else Replicate() for p in lg.placements],
+        src_data_rank=None)
+    m = logical_constraint(lg.detach().amax(-1, keepdim=True),
+                           ("batch", None, None))
+    m = torch.where(m.abs() == float("inf"), 0.0, m)
+    total = logical_constraint(torch.exp(lg - m).sum(-1), ("batch", None))
+    gold = logical_constraint(torch.where(ids == tgt[..., None], lg,
+                                          0.0).sum(-1), ("batch", None))
+    return logical_constraint(torch.log(total) + m[..., 0] - gold,
+                              ("batch", None))
 
 
 class ParamTree(nn.Module):
@@ -148,9 +179,7 @@ class Model(nn.Module):
                 use_kernel=self.use_kernel)
             tgt = batch["tokens"][:, 1:].long()
             lg = logits[:, :-1]
-            logz = torch.logsumexp(lg, dim=-1)
-            gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
-            nll = logz - gold
+            nll = _nll(lg, tgt)
             mask = batch.get("loss_mask")
             if mask is not None:
                 m = mask[:, 1:].to(torch.float32)

@@ -25,8 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import (full_tensor, gather_rows, logical_constraint,
-                                 replicated)
+from ..parallel.sharding import (full_tensor, gather_rows, grad_as_value,
+                                 logical_constraint, replicated)
 from . import layers as L
 
 
@@ -76,7 +76,10 @@ def moe_block(p, cfg, x):
     e, k = cfg.n_experts, cfg.top_k
     n = b * t
     cap = capacity(cfg, n)
-    xf = x.reshape(n, d)
+    # the tokens' gradient comes back laid out as they are (DTensor lays
+    # the router's out over both mesh dims, which the reshape's backward
+    # cannot split into [B, T])
+    xf = grad_as_value(x.reshape(n, d))
     dev = x.device
 
     probs, topw, topi = route(p, cfg, xf)
@@ -85,7 +88,10 @@ def moe_block(p, cfg, x):
     flat_e = full_tensor(topi.reshape(-1))                        # [n*k]
     # Switch-style load-balance aux loss
     me = probs.mean(0)
-    ce = torch.bincount(flat_e, minlength=e).float() / (n * k)
+    # the pairs each expert got, counted by a scatter (bincount's counts;
+    # it has no meta kernel)
+    ce = torch.zeros(e, dtype=flat_e.dtype, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e)).float() / (n * k)
     aux = e * torch.sum(me * ce) * cfg.router_aux_weight
 
     # slot of each (token, k) pair: its rank in its expert's queue

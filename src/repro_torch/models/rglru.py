@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import dense
 from .layers import _init_dense, _normal
 
 _C = 8.0
@@ -66,14 +67,15 @@ def rglru_block(p, cfg, x, state=None, use_kernel=False):
 
     dt = x.dtype
     # jax.nn.gelu defaults to the tanh approximation
-    gate = F.gelu((x @ p["w_gate_rec"].to(dt)).float(), approximate="tanh")
-    u = x @ p["w_x"].to(dt)
+    gate = F.gelu(dense(x, p["w_gate_rec"].to(dt)).float(),
+                  approximate="tanh")
+    u = dense(x, p["w_x"].to(dt))
     conv_state = state["conv"] if state is not None else None
     u, new_conv = _conv1d(p["conv_w"], p["conv_b"], u, conv_state)
 
     uf = u.float()
-    r = torch.sigmoid(uf @ p["w_a"].float())
-    i = torch.sigmoid(uf @ p["w_i"].float())
+    r = torch.sigmoid(dense(uf, p["w_a"].float()))
+    i = torch.sigmoid(dense(uf, p["w_i"].float()))
     log_a = -_C * r * F.softplus(p["lam"].float())
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
@@ -87,7 +89,7 @@ def rglru_block(p, cfg, x, state=None, use_kernel=False):
     else:
         h = ref.linear_scan_chunked(a, gated, h0=h0)
     new_h = h[:, -1, :].contiguous()
-    out = (h.float() * gate).to(dt) @ p["w_out"].to(dt)
+    out = dense((h.float() * gate).to(dt), p["w_out"].to(dt))
     return out, {"conv": new_conv, "h": new_h}
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import dense, merge_heads, split_dim
 from .layers import _init_dense, _normal, init_rmsnorm, rmsnorm
 
 _MIXES = ("w", "k", "v", "r", "g")
@@ -75,7 +76,7 @@ def _ddlerp(p, x, xx):
 
 def _heads(x, b, t, h, dh):
     """[B,T,H·dh] -> contiguous [B,H,T,dh] (the kernel's layout)."""
-    return x.reshape(b, t, h, dh).transpose(1, 2).contiguous()
+    return split_dim(x, -1, h, dh).transpose(1, 2).contiguous()
 
 
 def time_mix(p, cfg, x, shift_state=None, wkv_state=None, use_kernel=False):
@@ -89,13 +90,14 @@ def time_mix(p, cfg, x, shift_state=None, wkv_state=None, use_kernel=False):
     dt = x.dtype
     m = _ddlerp(p, x, _shifted(x, shift_state))
 
-    r = _heads(m["r"] @ p["w_r"].to(dt), b, t, h, dh)
-    k = _heads(m["k"] @ p["w_kk"].to(dt), b, t, h, dh)
-    v = _heads(m["v"] @ p["w_vv"].to(dt), b, t, h, dh)
-    gate = F.silu((m["g"] @ p["w_g"].to(dt)).float())
+    r = _heads(dense(m["r"], p["w_r"].to(dt)), b, t, h, dh)
+    k = _heads(dense(m["k"], p["w_kk"].to(dt)), b, t, h, dh)
+    v = _heads(dense(m["v"], p["w_vv"].to(dt)), b, t, h, dh)
+    gate = F.silu(dense(m["g"], p["w_g"].to(dt)).float())
 
     dec = p["decay_base"].float() + (
-        m["w"].float() @ p["decay_lora_a"].float()) @ p["decay_lora_b"].float()
+        dense(dense(m["w"].float(), p["decay_lora_a"].float()),
+              p["decay_lora_b"].float()))
     w = _heads(torch.exp(-torch.exp(dec)), b, t, h, dh)
     u = p["bonus_u"]
 
@@ -117,10 +119,10 @@ def time_mix(p, cfg, x, shift_state=None, wkv_state=None, use_kernel=False):
         out, new_state = ref.rwkv6(r, k, v, w, u, state=wkv_state,
                                    return_state=True)
 
-    o = out.transpose(1, 2).reshape(b, t, d)
+    o = merge_heads(out)
     o = rmsnorm(p["ln_x"], o, cfg.norm_eps)   # stand-in for per-head groupnorm
     o = (o.float() * gate).to(dt)
-    o = o @ p["w_o"].to(dt)
+    o = dense(o, p["w_o"].to(dt))
     return o, _last(x), new_state
 
 
@@ -143,9 +145,9 @@ def channel_mix(p, cfg, x, shift_state=None):
     mr = p["mix_r"].to(dt)
     xk = x * mk + prev * (1 - mk)
     xr = x * mr + prev * (1 - mr)
-    kk = torch.square(torch.relu((xk @ p["w_ck"].to(dt)).float())).to(dt)
-    rr = torch.sigmoid((xr @ p["w_cr"].to(dt)).float())
-    return (rr * (kk @ p["w_cv"].to(dt)).float()).to(dt), _last(x)
+    kk = torch.square(torch.relu(dense(xk, p["w_ck"].to(dt)).float())).to(dt)
+    rr = torch.sigmoid(dense(xr, p["w_cr"].to(dt)).float())
+    return (rr * dense(kk, p["w_cv"].to(dt)).float()).to(dt), _last(x)
 
 
 def init_rwkv_layer(g, cfg, device):

@@ -29,7 +29,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..parallel.sharding import gather_rows, logical_constraint
+from ..parallel.sharding import (dense, gather_fsdp, gather_rows,
+                                 grad_as_value, logical_constraint,
+                                 split_dim)
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -275,10 +277,10 @@ def _dec_layer(p, cfg: ModelConfig, x, positions, enc, cache=None,
 
 def _cross_kv(p, cfg: ModelConfig, enc):
     """Project the encoder output to cross-attention K/V heads."""
-    b, s, _ = enc.shape
     hkv, dh = cfg.kv_heads, cfg.head_dim
-    k = (enc @ p["wk"].to(enc.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = (enc @ p["wv"].to(enc.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
+    dt = enc.dtype
+    k = split_dim(dense(enc, p["wk"].to(dt)), -1, hkv, dh).transpose(1, 2)
+    v = split_dim(dense(enc, p["wv"].to(dt)), -1, hkv, dh).transpose(1, 2)
     return k, v
 
 
@@ -290,11 +292,13 @@ def encode(params, cfg: ModelConfig, audio_frames):
     x = audio_frames.to(dt) + params["enc_pos"].to(dt)[None]
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in params["enc_layers"]:
+        lp = gather_fsdp(lp)
         h = L.attention_block(lp["attn"], cfg,
                               L.layernorm(lp["ln1"], x, cfg.norm_eps),
                               positions, causal=False, use_rope=False)
         x = x + h
-        x = x + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], x, cfg.norm_eps))
+        x = _residual(x + L.gelu_mlp(lp["mlp"],
+                                     L.layernorm(lp["ln2"], x, cfg.norm_eps)))
     return x
 
 
@@ -304,7 +308,7 @@ def _image_prefix(params, cfg: ModelConfig, x, img_embeds=None):
     prefix)."""
     dt = cfg.act_dtype
     if cfg.family == "vlm" and img_embeds is not None:
-        img = img_embeds.to(dt) @ params["img_proj"].to(dt)
+        img = dense(img_embeds.to(dt), params["img_proj"].to(dt))
         x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
     return x
 
@@ -353,6 +357,40 @@ def _remat(fn, cfg: ModelConfig):
                              preserve_rng_state=False, **ctx)
 
 
+_LAYER_LISTS = ("layers", "enc_layers", "dec_layers")
+
+
+def _gather_top(params):
+    """The tree with its leaves outside the layer lists gathered over the
+    batch mesh axes (`gather_fsdp`); the layers are gathered one at a
+    time, where they run."""
+    return {k: v if k in _LAYER_LISTS else gather_fsdp(v)
+            for k, v in params.items()}
+
+
+def _gathered(fn):
+    """A layer function that first gathers its layer's parameters over
+    the batch mesh axes (inside `_remat`, the backward gathers them again
+    rather than keeping every layer's whole weights) and hands on its
+    output `_residual`."""
+    @functools.wraps(fn)
+    def run(lp, *args, **kw):
+        x, extra = fn(gather_fsdp(lp), *args, **kw)
+        return _residual(x), extra
+
+    return run
+
+
+def _residual(x):
+    """The residual stream between layers, split over the batch only: on
+    a mesh the products that contract a `model`-split dim leave partial
+    sums, reduced here once a layer, and the gradient that comes back is
+    laid out so too (`grad_as_value`; DTensor may otherwise split it over
+    rows that the batch does not divide).  A plain tensor is returned as
+    it is."""
+    return grad_as_value(logical_constraint(x, ("batch", None, None)))
+
+
 # ---------------------------------------------------------------------------
 # Forward passes (params from `cast_params`)
 # ---------------------------------------------------------------------------
@@ -360,6 +398,7 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
             audio_frames=None, use_kernel=False):
     """tokens [B, T] -> (logits [B, T, V], aux loss: the MoE blocks' summed
     over layers, else 0)."""
+    params = _gather_top(params)
     x = L.embed(params["embed"], tokens, cfg.act_dtype)
     x = _image_prefix(params, cfg, logical_constraint(x, ("batch", None, None)),
                       img_embeds)
@@ -369,20 +408,21 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
         enc = encode(params, cfg, _audio(cfg, audio_frames))
         x = x + gather_rows(params["dec_pos"], positions).to(x.dtype)[None]
         for lp in params["dec_layers"]:
-            x, _ = _remat(_dec_layer, cfg)(lp, cfg, x, positions, enc)
+            x, _ = _remat(_gathered(_dec_layer), cfg)(lp, cfg, x, positions,
+                                                      enc)
         return _logits(params, cfg, x), aux
     for kind, lp in zip(layer_kinds(cfg), params["layers"]):
         if kind in ("dense", "moe"):
-            x, a = _remat(dense_layer, cfg)(lp, cfg, x, positions,
-                                            window=cfg.window)
+            x, a = _remat(_gathered(dense_layer), cfg)(
+                lp, cfg, x, positions, window=cfg.window)
             if a is not None:
                 aux = aux + a
         elif kind == "rwkv6":
-            x, _ = _remat(RW.rwkv_layer, cfg)(lp, cfg, x,
-                                              use_kernel=use_kernel)
+            x, _ = _remat(_gathered(RW.rwkv_layer), cfg)(
+                lp, cfg, x, use_kernel=use_kernel)
         else:
-            x, _ = _remat(_hybrid_one, cfg)(lp, cfg, kind, x, positions,
-                                            use_kernel=use_kernel)
+            x, _ = _remat(_gathered(_hybrid_one), cfg)(
+                lp, cfg, kind, x, positions, use_kernel=use_kernel)
     return _logits(params, cfg, x), aux
 
 
@@ -391,6 +431,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, state, use_kernel=False):
     for the encdec) and a fresh decode state -> (last-token logits
     [B, 1, V], the filled state).  One fused pass, no token-by-token
     replay."""
+    params = _gather_top(params)
     tokens = batch["tokens"]
     x = _image_prefix(params, cfg,
                       L.embed(params["embed"], tokens, cfg.act_dtype),
@@ -398,14 +439,16 @@ def prefill(params, cfg: ModelConfig, batch: dict, state, use_kernel=False):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     if cfg.family == "encdec":
         enc = encode(params, cfg, _audio(cfg, batch.get("audio_frames")))
-        x = x + params["dec_pos"][positions].to(x.dtype)[None]
+        x = x + gather_rows(params["dec_pos"], positions).to(x.dtype)[None]
         caches = state["self"]
         for i, lp in enumerate(params["dec_layers"]):
-            x, caches[i] = _dec_layer(lp, cfg, x, positions, enc, caches[i],
-                                      mode="prefill")
+            x, caches[i] = _dec_layer(gather_fsdp(lp), cfg, x, positions,
+                                      enc, caches[i], mode="prefill")
+            x = _residual(x)
         state["enc"] = enc
         return _logits(params, cfg, x[:, -1:]), state
     for i, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+        lp = gather_fsdp(lp)
         if kind in ("dense", "moe"):
             x, state[i] = dense_layer_prefill(lp, cfg, x, positions, state[i],
                                               window=cfg.window)
@@ -415,6 +458,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, state, use_kernel=False):
         else:
             x, state[i] = _hybrid_one(lp, cfg, kind, x, positions, state[i],
                                       mode="prefill", use_kernel=use_kernel)
+        x = _residual(x)
     return _logits(params, cfg, x[:, -1:]), state
 
 
@@ -442,6 +486,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq: int, device):
 
 def decode_step(params, cfg: ModelConfig, token, state):
     """token [B, 1] -> (logits [B, 1, V], the advanced state)."""
+    params = _gather_top(params)
     x = L.embed(params["embed"], token, cfg.act_dtype)
     if cfg.family == "encdec":
         caches, enc = state["self"], state["enc"].to(x.dtype)
@@ -449,10 +494,12 @@ def decode_step(params, cfg: ModelConfig, token, state):
         x = x + params["dec_pos"][caches[0]["pos"]].to(x.dtype)
         zero = torch.zeros((1,), dtype=torch.long, device=x.device)
         for i, lp in enumerate(params["dec_layers"]):
-            x, caches[i] = _dec_layer(lp, cfg, x, zero, enc, caches[i],
-                                      mode="decode")
+            x, caches[i] = _dec_layer(gather_fsdp(lp), cfg, x, zero, enc,
+                                      caches[i], mode="decode")
+            x = _residual(x)
         return _logits(params, cfg, x), state
     for i, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+        lp = gather_fsdp(lp)
         if kind in ("dense", "moe"):
             x, state[i] = dense_layer_decode(lp, cfg, x, state[i],
                                              window=cfg.window)
@@ -461,4 +508,5 @@ def decode_step(params, cfg: ModelConfig, token, state):
         else:
             x, state[i] = _hybrid_one(lp, cfg, kind, x, None, state[i],
                                       mode="decode")
+        x = _residual(x)
     return _logits(params, cfg, x), state

@@ -317,6 +317,121 @@ def gather_rows(table, idx):
                               shape=shape, stride=stride)
 
 
+def gather_fsdp(tree):
+    """A parameter tree with each DTensor leaf made whole over the batch
+    mesh axes ("pod", "data"), which split the parameters FSDP-style,
+    and kept split over "model": the gather before use that the
+    reference's partitioner inserts where a weight meets batch-split
+    activations (its gradient comes back reduce-scattered).  A tree
+    without DTensors comes back as it is."""
+    if not _holds_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    def one(path, x):
+        if not is_dtensor(x):
+            return x
+        names = x.device_mesh.mesh_dim_names
+        place = [Replicate() if names[i] in ("pod", "data") else p
+                 for i, p in enumerate(x.placements)]
+        if place == list(x.placements):
+            return x
+        return x.redistribute(x.device_mesh, place)
+
+    return _map(one, tree)
+
+
+def grad_as_value(x):
+    """`x` as it is, with its gradient laid out as `x` is: a DTensor
+    passes through `to_local` / `from_local`, whose backward redistributes
+    the gradient to `x`'s placements, so the op that made `x` never meets
+    a gradient laid out otherwise (one split over heads or rows its
+    backward cannot split back).  Anything else is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def dense(x, w):
+    """`x @ w` for x [..., d] and a weight w [d, f].  On a DTensor it is
+    the fold torch.matmul makes (the leading dims into one, one mm,
+    unfolded) with two guards for batch rows the mesh does not divide:
+    the folded x's gradient is laid out as the folded x (`grad_as_value`)
+    and the unfold goes through `split_dim`, since DTensor may lay the
+    product or its gradient out over the folded rows, which a view
+    cannot split back.  A plain x takes `x @ w` as it is."""
+    if not is_dtensor(x):
+        return x @ w
+    lead = tuple(x.shape[:-1])
+    y = grad_as_value(x.reshape(-1, x.shape[-1])) @ w
+    return split_dim(y, 0, *lead) if len(lead) > 1 else y
+
+
+def merge_heads(o):
+    """[B, H, T, D] -> [B, T, H·D], as `o.transpose(1, 2).reshape`, its
+    gradient laid out as the output (`grad_as_value`): a gradient that the
+    next product splits over H·D could not be split back into heads the
+    mesh does not divide."""
+    b, h, t, d = o.shape
+    return grad_as_value(o.transpose(1, 2).reshape(b, t, h * d))
+
+
+def split_dim(x, dim: int, *sizes):
+    """`x` with dim `dim` split into `sizes` ([..., a*b, ...] -> [...,
+    a, b, ...], a view where it can be).  A DTensor split on that dim
+    over mesh dims whose sizes do not divide `a` is first made whole on
+    those mesh dims (DTensor carries a dim's shards to the first part
+    only, and only evenly): the reference's 8 kv heads over a 16-wide
+    `model` axis.  A plain tensor is reshaped as it is."""
+    dim %= x.ndim
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        on = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+        mesh = x.device_mesh
+        if on and sizes[0] % math.prod(mesh.size(i) for i in on):
+            x = x.redistribute(mesh, [Replicate() if i in on else p
+                                      for i, p in enumerate(x.placements)])
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def heads_local(fn, q, k, v, **kw):
+    """`fn(q, k, v, **kw)` for attention over q [B, Hq, T, D] and k / v
+    [B, Hkv, S, D], `fn` one of the plain functions of `kernels.ref`,
+    which take k and v to float32 and repeat them to the query heads.  On
+    DTensors each rank runs `fn` on its own batch rows and query heads: k
+    and v are taken to float32 and repeated to the query heads here (GQA;
+    `fn` then repeats each head once), all three are laid out as q on the
+    batch and head dims and made whole on the others, and the output [B,
+    Hq, T, Dv] keeps that layout.  (Run as DTensor ops, the products'
+    flattening of (batch, heads) into one dim gathers the heads on every
+    rank.)  With `ref.attention` the arithmetic is the plain call's,
+    forward and backward: the repeated heads' gradients are summed in
+    float32 before the cast back (`ref.blocked_attention` sums its key
+    blocks' gradients in float32 here, in the activation dtype there).
+    Plain tensors go to `fn` as they are."""
+    if not is_dtensor(q):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = q.device_mesh
+    place = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+             for p in q.placements]
+    group = q.shape[1] // k.shape[1]
+    q, k, v = (x.redistribute(mesh, place) for x in (
+        q, k.float().repeat_interleave(group, dim=1),
+        v.float().repeat_interleave(group, dim=1)))
+    out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    shape = tuple(q.shape[:3]) + (v.shape[3],)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(4))
+    return DTensor.from_local(out, mesh, place, run_check=False,
+                              shape=shape, stride=stride)
+
+
 def replicated(x):
     """A DTensor whole on every rank (redistributed to Replicate), as a
     view that merges a split dim needs it on torch 2.11 (the MoE's [E,

@@ -32,7 +32,7 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault import Supervisor, elastic_restore
 from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.train_step import TrainConfig, make_train_step
-from test_torch_sharding import SMALL, SRC, run_ranks
+from test_torch_sharding import FAMILY_ARCHS, SMALL, SRC, run_ranks
 
 
 @pytest.fixture
@@ -76,6 +76,33 @@ def test_placed_step_on_one_rank_gives_the_plain_bits(mesh, deterministic):
         assert qo["mu"][k].placements == layout[k], k
         assert torch.equal(v.full_tensor(), plain[k]), k
         assert torch.equal(qo["nu"][k].full_tensor(), po["nu"][k]), k
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_placed_step_on_one_rank_gives_the_plain_bits_in_bf16(arch, mesh,
+                                                              deterministic):
+    """Each family's REDUCED model with bf16 activations: one placed step
+    on the one-rank mesh and one plain step, the same loss and parameters
+    bit for bit (the GQA heads' gradients summed in float32 on both
+    paths; the card's bf16 train step is held so)."""
+    cfg = get_config(arch, reduced=True).with_(dtype="bfloat16")
+    model = make_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    step = make_train_step(model, TrainConfig())
+    plain = model.master_params()
+    b = _batch(cfg.vocab, 0)
+    rng = np.random.default_rng(1)
+    if cfg.family == "vlm":
+        b["img_embeds"] = torch.from_numpy(rng.normal(
+            size=(4, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        b["audio_frames"] = torch.from_numpy(rng.normal(
+            size=(4, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    p1, _, m1 = step(plain, init_opt_state(plain), b, 0)
+    placed = place_params(plain, mesh)
+    p2, _, m2 = step(placed, init_opt_state(placed), place_batch(b, mesh), 0)
+    assert torch.equal(m1["loss"], m2["loss"])
+    bad = [k for k in p1 if not torch.equal(p1[k], full_tensor(p2[k]))]
+    assert not bad, bad
 
 
 FOUR_RANKS = """
@@ -274,6 +301,57 @@ def test_importing_the_mesh_touches_no_group_nor_dtensor(tmp_path):
                        text=True, timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip() == "OK"
+
+
+DRYRUN_IMPORTS = textwrap.dedent("""
+    import os, sys
+    sys.path.insert(0, %r)
+    import torch.distributed as dist
+    import repro_torch.launch.dryrun, repro_torch.launch.report
+    import repro_torch.launch.roofline
+    assert not dist.is_initialized()
+    assert "XLA_FLAGS" not in os.environ
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                               "repro"))
+    assert not bad, bad
+    print("OK")
+""") % SRC
+
+DRYRUN_ON_GLOO = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, %r)
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    make_host_mesh(("data",), "cpu")
+    try:
+        lower_cell("qwen3-0.6b", "train_4k")
+    except RuntimeError as e:
+        assert "fake process group" in str(e), e
+        assert str(dist.get_backend()) == "gloo"
+        print("REFUSED")
+""") % SRC
+
+
+def test_importing_the_dryrun_touches_no_group_nor_jax(tmp_path):
+    """Importing the dry-run, roofline and report launchers makes no
+    process group, sets no XLA_FLAGS and loads neither JAX nor the
+    reference package."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    r = subprocess.run([sys.executable, "-c", DRYRUN_IMPORTS],
+                       capture_output=True, text=True, timeout=240, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "OK"
+
+
+def test_the_dryrun_refuses_a_gloo_default_group(tmp_path):
+    """`lower_cell` runs on torch's fake process group only: on a process
+    whose default group is gloo it raises and leaves that group as it
+    was."""
+    r = subprocess.run([sys.executable, "-c", DRYRUN_ON_GLOO],
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "REFUSED"
 
 
 def test_a_cuda_mesh_never_becomes_a_cpu_mesh():
